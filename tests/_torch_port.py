@@ -1,0 +1,92 @@
+"""Helpers shared by the ``test_torch_*`` files: build a JAX model and the
+port's twin with the same weights (through the port's own bridge), and
+replay the JAX train step's random draws so both sides see the same ones.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from salun.models import create_model as jax_create_model
+from salun_torch.ckpt import state_dict_from_jax
+from salun_torch.models import create_model
+
+
+def jax_model_and_vars(arch, rng, num_classes=10, seed=0):
+    """Flax model plus numpy (params, batch_stats) with non-trivial BN."""
+    model = jax_create_model(arch, num_classes)
+    variables = model.init(jax.random.PRNGKey(seed),
+                           jnp.zeros((1, 32, 32, 3)), train=False)
+    params = jax.tree.map(np.asarray, variables["params"])
+    stats = jax.tree.map(np.asarray, variables["batch_stats"])
+    return model, _perturb_bn_params(params, rng), _perturb_stats(stats, rng)
+
+
+def _perturb_bn_params(tree, rng):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict) and "scale" in v:
+            out[k] = {"scale": (1.0 + 0.1 * rng.standard_normal(
+                v["scale"].shape)).astype(np.float32),
+                "bias": (0.1 * rng.standard_normal(
+                    v["bias"].shape)).astype(np.float32)}
+        elif isinstance(v, dict):
+            out[k] = _perturb_bn_params(v, rng)
+        else:
+            out[k] = v
+    return out
+
+
+def _perturb_stats(tree, rng):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict) and "mean" in v:
+            out[k] = {"mean": (0.1 * rng.standard_normal(
+                v["mean"].shape)).astype(np.float32),
+                "var": (1.0 + 0.5 * rng.random(v["var"].shape)).astype(
+                    np.float32)}
+        else:
+            out[k] = _perturb_stats(v, rng)
+    return out
+
+
+def port_twin(arch, params, batch_stats, num_classes=10):
+    """The port's model carrying the JAX weights (strict load)."""
+    model = create_model(arch, num_classes)
+    model.load_state_dict(state_dict_from_jax(params, batch_stats),
+                          strict=True)
+    return model
+
+
+def nchw(x):
+    return torch.from_numpy(np.ascontiguousarray(
+        np.asarray(x).transpose(0, 3, 1, 2)))
+
+
+def jax_step_draws(sub, batch_size, num_classes):
+    """The draws of ``salun.core.train.make_train_step`` for step key
+    ``sub``: crop offsets and flips (augment) and random labels."""
+    ka, kl = jax.random.split(sub)
+    kc, kf = jax.random.split(ka)
+    offsets = np.array(jax.random.randint(kc, (batch_size, 2), 0, 9))
+    flips = np.array(jax.random.bernoulli(kf, 0.5, (batch_size,)))
+    labels = np.array(jax.random.randint(kl, (batch_size,), 0, num_classes))
+    return offsets, flips, labels
+
+
+def jax_key_source(key, num_classes):
+    """A randomness source for ``salun_torch.core.train`` that replays the
+    JAX run_epoch key discipline (one split per step) from ``key``."""
+    state = {"key": key}
+
+    def draw(batch_size, *, random_labels=False):
+        state["key"], sub = jax.random.split(state["key"])
+        offsets, flips, labels = jax_step_draws(sub, batch_size, num_classes)
+        out = {"offsets": torch.from_numpy(offsets.astype(np.int64)),
+               "flips": torch.from_numpy(flips)}
+        if random_labels:
+            out["labels"] = torch.from_numpy(labels.astype(np.int64))
+        return out
+
+    return draw
