@@ -6,7 +6,11 @@ port's torch state dicts, without importing anything of ``salun``:
 - conv kernel HWIO → weight OIHW; Dense kernel → ``weight.T``;
 - BatchNorm ``scale`` → ``weight``; ``mean``/``var`` → ``running_mean``/
   ``running_var``;
-- module names ``layer1_0/downsample_conv`` → ``layer1.0.downsample.0``.
+- module names ``layer1_0/downsample_conv`` → ``layer1.0.downsample.0``;
+- for the DDPM U-Net, its own copy of the name map of
+  ``salun/ckpt/torch_import.py:315-436`` (``temb_dense0`` ↔
+  ``temb.dense.0``, ``down_1_attn_0/q`` ↔ ``down.1.attn.0.q``,
+  ``mid_block_1`` ↔ ``mid.block_1``, Embed ``embedding`` ↔ ``weight``).
 
 Also reads the reference's torch checkpoints (``{"state_dict": ...}``,
 ``module.`` prefixes, the ``normalize.*`` constants the port keeps as
@@ -15,6 +19,8 @@ non-persistent buffers).
 
 from __future__ import annotations
 
+import os
+import re
 from typing import Dict
 
 import numpy as np
@@ -150,3 +156,118 @@ def load_state_dict(path_or_sd) -> Dict[str, torch.Tensor]:
             continue  # the port keeps these constants inside the model
         out[k] = v
     return out
+
+
+# --------------------------------------------------------------- DDPM
+
+_DDPM_MODULES = (
+    (r"(temb|cemb)_dense(\d+)", "{0}.dense.{1}"),
+    (r"(classes_emb|conv_in|conv_out|norm_out)", "{0}"),
+    (r"(down|up)_(\d+)_(block|attn)_(\d+)/(\w+)", "{0}.{1}.{2}.{3}.{4}"),
+    (r"(down|up)_(\d+)_(downsample|upsample)/conv", "{0}.{1}.{2}.conv"),
+    (r"mid_(\w+)/(\w+)", "mid.{0}.{1}"),
+)
+
+
+def ddpm_module_to_torch(module: str) -> str:
+    """A JAX ``ConditionalUNet`` module path → the reference
+    ``Conditional_Model`` module name (``export_ddpm_unet``'s map)."""
+    for pattern, fmt in _DDPM_MODULES:
+        m = re.fullmatch(pattern, module)
+        if m:
+            return fmt.format(*m.groups())
+    raise KeyError(module)
+
+
+def ddpm_module_to_jax(module: str) -> str:
+    """Inverse of :func:`ddpm_module_to_torch` (``import_ddpm_unet``)."""
+    p = module.split(".")
+    if p[0] in ("temb", "cemb"):
+        return f"{p[0]}_dense{p[2]}"
+    if p[0] in ("classes_emb", "conv_in", "conv_out", "norm_out"):
+        return p[0]
+    if p[0] in ("down", "up") and p[2] in ("block", "attn"):
+        return f"{p[0]}_{p[1]}_{p[2]}_{p[3]}/{p[4]}"
+    if p[0] in ("down", "up") and p[2] in ("downsample", "upsample"):
+        return f"{p[0]}_{p[1]}_{p[2]}/conv"
+    if p[0] == "mid":
+        return f"mid_{p[1]}/{p[2]}"
+    raise KeyError(module)
+
+
+def _ddpm_from_jax(tree, dtype=None) -> Dict[str, torch.Tensor]:
+    out = {}
+    for path, v in _flatten(tree).items():
+        arr = np.asarray(v, dtype)
+        if path == "null_classes_emb":
+            out[path] = _to_torch(arr)
+            continue
+        mod, leaf = path.rsplit("/", 1)
+        tleaf, arr = (("weight", arr) if leaf == "embedding"
+                      else _leaf_to_torch(arr, leaf))
+        out[f"{ddpm_module_to_torch(mod)}.{tleaf}"] = _to_torch(arr)
+    return out
+
+
+def ddpm_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """JAX ``ConditionalUNet`` params (numpy tree) → the port's state dict:
+    conv HWIO → OIHW, Dense kernel → ``.T``, GroupNorm ``scale`` →
+    ``weight``, Embed ``embedding`` → ``weight``."""
+    return _ddpm_from_jax(params)
+
+
+def ddpm_mask_from_jax(mask_tree) -> Dict[str, torch.Tensor]:
+    """A JAX DDPM mask tree → ``{torch name: fp32 0/1 tensor}``, the
+    reference ``with_{t}.pt`` format."""
+    return _ddpm_from_jax(mask_tree, np.float32)
+
+
+def ddpm_mask_to_jax(mask: Dict[str, torch.Tensor]) -> dict:
+    """Inverse of :func:`ddpm_mask_from_jax`: a nested dict of fp32 numpy
+    arrays in the JAX layout."""
+    flat = {}
+    for name, t in mask.items():
+        arr = t.detach().cpu().numpy().astype(np.float32)
+        if name == "null_classes_emb":
+            flat[name] = arr
+            continue
+        module, leaf = name.rsplit(".", 1)
+        if leaf == "weight":
+            if module == "classes_emb":
+                leaf = "embedding"
+            elif arr.ndim == 4:
+                leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
+            elif arr.ndim == 2:
+                leaf, arr = "kernel", arr.T
+            else:
+                leaf = "scale"
+        flat[f"{ddpm_module_to_jax(module)}/{leaf}"] = np.ascontiguousarray(arr)
+    return _unflatten(flat)
+
+
+def _strip_module(sd: dict) -> dict:
+    return {(k[len("module."):] if k.startswith("module.") else k): v
+            for k, v in sd.items()}
+
+
+def load_ddpm_states(path: str):
+    """A DDPM ``ckpt.pth``, the list ``[model_sd, optim_sd, step,
+    (ema_sd)]`` (runners/diffusion.py:252-265) → ``(model_sd, step,
+    ema_sd or None)``, ``module.`` prefixes stripped."""
+    states = torch.load(path, map_location="cpu", weights_only=True)
+    step = int(states[2]) if len(states) > 2 else 0
+    ema_sd = _strip_module(states[3]) if len(states) > 3 else None
+    return _strip_module(states[0]), step, ema_sd
+
+
+def save_ddpm_states(path: str, model_sd: dict, optim_sd=None, step: int = 0,
+                     ema_sd=None) -> None:
+    """Write ``[model_sd, optim_sd, step, (ema_sd)]``, on the CPU."""
+    def cpu(sd):
+        return {k: v.detach().cpu() for k, v in sd.items()}
+
+    states = [cpu(model_sd), optim_sd or {}, int(step)]
+    if ema_sd is not None:
+        states.append(cpu(ema_sd))
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    torch.save(states, path)

@@ -1,4 +1,5 @@
-"""Saliency-masked SGD over flat parameter buffers.
+"""Saliency-masked SGD over flat parameter buffers, and the grad-mask
+pieces of the DDPM optimizer (``clip_by_global_norm``, ``mask_grads``).
 
 Counterpart of ``salun/core/masked_opt.py``. SalUn's update rule
 (reference Classification/unlearn/RL.py:11-34): masked grads, the SGD step,
@@ -21,6 +22,32 @@ import torch
 from torch import nn
 
 from salun_torch.kernels.masked_update import masked_sgd_update
+
+
+def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """√(Σ over tensors of Σ x²), as ``optax.global_norm``."""
+    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+
+
+def clip_by_global_norm(grads: Sequence[torch.Tensor],
+                        max_norm: float) -> list:
+    """``optax.clip_by_global_norm``: the grads unchanged while the global
+    norm is below ``max_norm``, else ``(g / norm) * max_norm``.
+
+    Not ``torch.nn.utils.clip_grad_norm_``, which scales every grad by
+    ``max_norm / (norm + 1e-6)`` clamped at 1. The choice is made on the
+    device (``torch.where``), with no host sync.
+    """
+    norm = global_norm(grads)
+    keep = norm < max_norm
+    return [torch.where(keep, g, (g / norm) * max_norm) for g in grads]
+
+
+def mask_grads(grads: Sequence[torch.Tensor],
+               mask: Sequence[torch.Tensor]) -> list:
+    """``grads *= mask`` (``salun/core/masked_opt.py:44-57``), the grad
+    mask of the DDPM and SD workloads."""
+    return [g * m.to(g.dtype) for g, m in zip(grads, mask, strict=True)]
 
 
 class FlatParams:

@@ -7,6 +7,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+# torch imports torch._dynamo lazily, at the first optimizer it builds. A
+# test elsewhere patches os.path.exists while a library probes an optional
+# import (tests/test_tokenizer.py::test_loader_fails_loudly); a first import
+# of torch._dynamo inside that window fails halfway and leaves it broken
+# for the rest of the process. Importing it here, while the test modules
+# are collected (every worker collects every file), keeps it out of it.
+import torch._dynamo  # noqa: F401
 
 from salun.models import create_model as jax_create_model
 from salun_torch.ckpt import state_dict_from_jax
@@ -90,3 +97,32 @@ def jax_key_source(key, num_classes):
         return out
 
     return draw
+
+
+def ddpm_twin(jax_unet_cfg, params):
+    """The port's U-Net for a JAX ``UNetConfig`` carrying the JAX params,
+    through the port's bridge (strict load)."""
+    from dataclasses import fields
+
+    from salun_torch.ckpt import ddpm_state_dict_from_jax
+    from salun_torch.diffusion import ConditionalUNet, UNetConfig
+
+    cfg = UNetConfig(**{f.name: getattr(jax_unet_cfg, f.name)
+                        for f in fields(UNetConfig)})
+    model = ConditionalUNet(cfg)
+    model.load_state_dict(ddpm_state_dict_from_jax(params), strict=True)
+    return model
+
+
+def perturb_vectors(params, rng, scale=0.1):
+    """Numpy copy of a param tree with every 1-D leaf (biases, GroupNorm
+    scales, the null embedding) moved off its init value, so that layout
+    and naming faults in those leaves show."""
+    return jax.tree.map(
+        lambda p: (np.asarray(p) + scale * rng.standard_normal(p.shape)
+                   ).astype(np.float32) if np.ndim(p) == 1
+        else np.asarray(p), params)
+
+
+def nhwc(t):
+    return np.asarray(t.detach().cpu().numpy()).transpose(0, 2, 3, 1)

@@ -1,0 +1,133 @@
+"""K2, K3a and K3b on the card against their plain PyTorch versions
+(``-m cuda``).
+
+Skips where no CUDA device is present; the decision is taken inside the
+fixture, never at import. Imports neither ``jax`` nor ``salun``: on the
+card's machine run ``python -m pytest tests/test_torch_attention_cuda.py
+-m cuda --noconftest -p no:cacheprovider``.
+
+Tolerance: both sides compute in fp32 (TF32 off), but sum in other orders
+(the kernels: sequential FMAs over D and over 32-wide tiles with an online
+softmax; the plain versions: cuBLAS SGEMM over materialised scores), so
+they differ by fp32 rounding of sums of up to N·D terms: about 1e-6 of the
+largest value here. The bound ``1e-4 · max(1, max|want|)`` leaves 100×
+room and still fails TF32 (~5e-4 relative) or any indexing fault (O(1)).
+"""
+
+import pytest
+import torch
+
+from salun_torch.kernels import flash_attention as fa
+from salun_torch.kernels.attention import (multi_head_attention,
+                                           scaled_dot_attention)
+from salun_torch.utils.device import set_tf32
+
+SHAPES = [  # (B, Nq, Nk, D)
+    (128, 256, 256, 256),  # DDPM res-16 attention, bs 128
+    (128, 16, 16, 256),    # DDPM mid block
+    (3, 77, 77, 64),       # ragged N
+    (2, 100, 77, 40),      # Nq ≠ Nk (SD cross-attention), D = 40
+    (4, 33, 65, 160),
+    (1, 1, 1, 8),
+]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K2/K3 have no CPU or interpret "
+                    "mode)")
+    set_tf32(False)
+    return torch.device("cuda")
+
+
+def _close(got, want):
+    err = float((got - want).abs().max())
+    assert err <= 1e-4 * max(1.0, float(want.abs().max())), err
+
+
+def _inputs(dev, b, nq, nk, d, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    return rnd(b, nq, d), rnd(b, nk, d), rnd(b, nk, d), rnd(b, nq, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_kernels_match_plain_on_card(cuda, shape):
+    b, nq, nk, d = shape
+    q, k, v, do = _inputs(cuda, b, nq, nk, d)
+    scale = d ** -0.5
+    counts = [f.launches for f in (fa.flash_attention_fwd,
+                                   fa.flash_attention_bwd_dq,
+                                   fa.flash_attention_bwd_dkv)]
+    o, lse = fa.flash_attention_fwd(q, k, v, scale, need_lse=True)
+    want_o, want_lse = fa.flash_attention_fwd_reference(q, k, v, scale)
+    _close(o, want_o)
+    _close(lse, want_lse)
+    o_only, none = fa.flash_attention_fwd(q, k, v, scale)
+    assert none is None and torch.equal(o_only, o)
+
+    delta = (do * want_o).sum(-1)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, want_lse, delta, scale)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, want_lse, delta, scale)
+    _close(dq, fa.flash_attention_bwd_dq_reference(q, k, v, do, want_lse,
+                                                   delta, scale))
+    want_dk, want_dv = fa.flash_attention_bwd_dkv_reference(
+        q, k, v, do, want_lse, delta, scale)
+    _close(dk, want_dk)
+    _close(dv, want_dv)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (fa.flash_attention_fwd,
+                                 fa.flash_attention_bwd_dq,
+                                 fa.flash_attention_bwd_dkv)] == [
+        counts[0] + 2, counts[1] + 1, counts[2] + 1]
+
+
+@pytest.mark.cuda
+def test_autograd_on_card_matches_cpu_plain(cuda):
+    """The autograd function with K2/K3 on the card against the same
+    function on the CPU (plain forward and backward)."""
+    b, n, d = 4, 77, 64
+    q, k, v, w = (t.cpu() for t in _inputs(cuda, b, n, n, d, seed=1))
+    grads = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        out = scaled_dot_attention(*leaves)
+        (out * w.to(dev)).sum().backward()
+        grads[str(dev)] = [out.detach().cpu()] + [t.grad.cpu() for t in leaves]
+    for got, want in zip(grads[str(cuda)], grads["cpu"]):
+        _close(got, want)
+
+
+@pytest.mark.cuda
+def test_multi_head_attention_on_card(cuda):
+    b, n, h, d = 2, 64, 8, 40
+    q, k, v, _ = _inputs(cuda, b, n, n, h * d, seed=2)
+    got = multi_head_attention(q, k, v, h)
+    want = multi_head_attention(q.cpu(), k.cpu(), v.cpu(), h)
+    _close(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["d12", "d264", "bf16", "strided", "cpu_k"])
+def test_unsupported_input_raises_on_card(cuda, bad):
+    b, n, d = 2, 16, 64
+    q, k, v, _ = _inputs(cuda, b, n, n, d)
+    before = fa.flash_attention_fwd.launches
+    if bad == "d12":
+        q, k, v = (t[..., :12].contiguous() for t in (q, k, v))
+    elif bad == "d264":
+        q, k, v = (torch.randn(b, n, 264, device=cuda) for _ in range(3))
+    elif bad == "bf16":
+        q = q.bfloat16()
+    elif bad == "strided":
+        q = torch.randn(b, d, n, device=cuda).transpose(1, 2)
+    else:
+        k = k.cpu()
+    with pytest.raises((TypeError, ValueError)):
+        scaled_dot_attention(q, k, v)
+    assert fa.flash_attention_fwd.launches == before

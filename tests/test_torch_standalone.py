@@ -1,7 +1,7 @@
 """The port stands alone: importing every ``salun_torch`` module (in a
-fresh interpreter, since this suite's conftest imports JAX) pulls in
-neither ``jax`` nor the JAX package ``salun``, and no port file names
-either in an import statement."""
+fresh interpreter, since this suite's conftest imports JAX), the DDPM
+slice and its CLIs included, pulls in neither ``jax`` nor the JAX package
+``salun``, and no port file names either in an import statement."""
 
 import ast
 import pathlib
@@ -21,7 +21,15 @@ def _modules():
 
 def test_importing_every_port_module_loads_no_jax():
     mods = list(_modules())
-    assert "salun_torch.kernels.masked_update" in mods
+    for m in ("salun_torch.kernels.masked_update",
+              "salun_torch.kernels.flash_attention",
+              "salun_torch.kernels.attention",
+              "salun_torch.diffusion.schedules", "salun_torch.diffusion.unet",
+              "salun_torch.diffusion.sampling", "salun_torch.diffusion.runner",
+              "salun_torch.diffusion.losses", "salun_torch.diffusion.ema",
+              "salun_torch.data.ddpm_data", "salun_torch.cli.ddpm_config",
+              "salun_torch.cli.ddpm_train", "salun_torch.cli.ddpm_sample"):
+        assert m in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
