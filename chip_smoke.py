@@ -21,8 +21,18 @@ Phases, each of which fails the script (exit code 1) when it fails:
    above 1e-4·max(1, max|plain|). Times with CUDA events, the bound, the
    plain version's time and, for K2/K3, the time of
    ``torch.nn.functional.scaled_dot_product_attention`` (forward; backward
-   through autograd) on the same tensors, as a yardstick only. Saliency
-   masks on the card against the CPU's on a heavily tied input: bitwise.
+   through autograd) on the same tensors, as a yardstick only. K4 and K4b
+   (fused GroupNorm + SiLU forward and backward) against their plain
+   versions at the SD path's [B, C, H, W] (U-Net [8, 320, 64, 64],
+   [4, 640, 64, 64], [4, 2560, 8, 8] at eps 1e-5; VAE [4, 128, 512, 512]
+   and [4, 256, 512, 512] at eps 1e-6) and ragged ones, failing above
+   1e-5 (forward) and 1e-4 (backward) × max(1, max|plain|); times, the
+   bytes bound and, as the yardstick, ``F.group_norm`` then ``F.silu``
+   (two calls; their autograd backward for K4b). K2 at the SD U-Net's
+   self- and cross-attention shapes ([32, N, N or 77, D] for N = 4096,
+   1024, 256, 64 and D = 40, 80, 160, 160) with K3a/K3b there, and K2 at
+   the VAE's D = 512 ([4, 4096, 4096, 512]). Saliency masks on the card
+   against the CPU's on a heavily tied input: bitwise.
 4. Classification main path at full width: synthetic CIFAR-shaped data
    written in the CIFAR-10 file format, a seeded ResNet-18, then the
    port's own entry points ``salun_torch.cli.generate_mask`` (masks at
@@ -45,8 +55,26 @@ Phases, each of which fails the script (exit code 1) when it fails:
    attention sites per U-Net forward); losses finite; samples finite and
    in [0, 1]. Prints the mask-generation seconds, the unlearning ms per
    step over steps 2–20 and the sampling seconds.
-6. A ``{"kernels": [...]}`` line, the card's name and power limit, and as
-   the last line ``{"ok": true, "device": {...}}``.
+6. SD chain at full width: ``configs/sd/v1-inference.yaml`` (U-Net
+   859,520,964, VAE 83,653,863, CLIP text 123,060,480 parameters) with
+   seeded random weights written as a CompVis ``.ckpt`` (no layer at zero,
+   norm affines moved off (1, 0)), a synthetic ``imagenette2/train``
+   folder of non-square PNGs (10 classes × 16) and the repository's
+   synthetic BPE merges, then ``salun_torch.cli.sd_train generate_mask``
+   (16 forget images, bs 4, threshold 0.5), ``random_label --remat`` (2
+   epochs = 8 steps at bs 4, lr 1e-5, α 0.5, full) and
+   ``salun_torch.cli.sd_generate_images`` (2 prompt rows of
+   ``prompts/imagenette.csv`` × 2 samples, 50 DDIM steps, guidance 7.5,
+   512×512). Checks: the mask is exact-k; every masked-out U-Net weight
+   equals θ₀ bitwise and the VAE and CLIP are unchanged bitwise; K2, K3a,
+   K3b, K4 and K4b launch exactly as the path implies (remat recompute
+   included); losses finite; images in [0, 1], every PNG written. Prints
+   the mask-generation seconds, ms per random_label step over steps 2–8
+   (and the attention kernels' share of it at the phase-3 times) and the
+   sampling seconds.
+7. A ``{"kernels": [...]}`` line (launches per path and in all), the
+   card's name and power limit, and as the last line ``{"ok": true,
+   "device": {...}}``.
 
 Scratch files go to ``build/chip_smoke/`` inside the checkout.
 """
@@ -87,6 +115,37 @@ DDPM_SAMPLE_CONFIG = ROOT / "configs" / "ddpm" / "cifar10_sample.yml"
 DDPM_PER_CLASS, DDPM_ITERS = 500, 20
 DDPM_SAMPLES, DDPM_STEPS, DDPM_CLASSES = 16, 50, (0, 1)
 
+# K4/K4b: the SD path's [B, C, H, W] (the U-Net's level 0 at the CFG-
+# doubled bs 4 of mask generation, the 640-channel concat of
+# output_blocks.10-11 and the bottom at bs 4, the VAE's two largest planes
+# at bs 4) and ragged ones, each with (groups, eps)
+GN_PATH = [((8, 320, 64, 64), 32, 1e-5), ((4, 640, 64, 64), 32, 1e-5),
+           ((4, 2560, 8, 8), 32, 1e-5), ((4, 128, 512, 512), 32, 1e-6),
+           ((4, 256, 512, 512), 32, 1e-6)]
+GN_RAGGED = [((3, 6, 5, 7), 3, 1e-5), ((2, 32, 50, 100), 32, 1e-5),
+             ((2, 32, 1, 1), 32, 1e-6)]
+GN_TOL = (1e-5, 1e-4)  # forward, backward: × max(1, max|plain|)
+
+# Flash attention at the SD path's [B·heads, Nq, Nk, D]: U-Net self- and
+# cross-attention (Nk = 77) at bs 4 (8 heads; random_label's and
+# sampling's batch), the VAE's mid-block attention (one head, D = 512) at
+# bs 4
+ATTN_SD_UNET = [(32, 4096, 4096, 40), (32, 4096, 77, 40),
+                (32, 1024, 1024, 80), (32, 1024, 77, 80),
+                (32, 256, 256, 160), (32, 256, 77, 160), (32, 64, 64, 160),
+                (32, 64, 77, 160)]
+ATTN_SD_VAE = [(4, 4096, 4096, 512)]
+
+# SD chain: configs/sd/v1-inference.yaml at full width, seeded weights;
+# cut in count (16 forget images instead of 64, 2 epochs instead of 5,
+# 2 prompt rows × 2 samples at 50 DDIM steps instead of 100)
+SD_CONFIG = ROOT / "configs" / "sd" / "v1-inference.yaml"
+SD_PROMPTS = ROOT / "prompts" / "imagenette.csv"
+SD_MERGES = ROOT / "tests" / "_synthetic_clip_merges.txt"
+SD_IMAGE, SD_PER_CLASS, SD_BS = 512, 16, 4
+SD_EPOCHS, SD_LR, SD_ALPHA = 2, 1e-5, 0.5
+SD_ROWS, SD_SAMPLES, SD_STEPS, SD_GUIDANCE = 2, 2, 50, 7.5
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
@@ -120,6 +179,14 @@ def cuda_time_ms(fn, iters: int, warmup: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def adaptive_ms(fn, budget_ms: float = 150.0) -> float:
+    """``cuda_time_ms`` with as many launches as fit ``budget_ms`` (3 to
+    50), after one warm-up launch timed alone."""
+    first = cuda_time_ms(fn, 1, warmup=1)
+    iters = int(min(50, max(3, budget_ms / max(first, 1e-3))))
+    return cuda_time_ms(fn, iters, warmup=1)
 
 
 def _bound(n_bytes: float, n_ops: float):
@@ -298,6 +365,179 @@ def attention_vs_plain(device):
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms})
     return entries, {key: t[0] for key, t in times.items()}
+
+
+def _gn_work(shape, groups, backward: bool):
+    """(bytes, operations) of one K4 (or K4b) call: x read and y written
+    (K4b: x, dy read, dx written), the per-channel and per-slab vectors
+    once; 9 operations per value forward, 21 backward (exp and division
+    counted as one each)."""
+    b, c = shape[:2]
+    n = math.prod(shape)
+    vecs = 2 * c + 2 * b * groups
+    if backward:
+        return 4 * (3 * n + vecs + 2 * c), 21 * n
+    return 4 * (2 * n + vecs), 9 * n
+
+
+def groupnorm_vs_plain(device):
+    """K4 and K4b against their plain versions at the SD path's and ragged
+    shapes; times, bounds and the two-call library yardstick
+    (``F.group_norm`` then ``F.silu``; its autograd backward) at the
+    path's shapes. Returns the K4 and K4b entries (at the U-Net's
+    [8, 320, 64, 64]) and a list of per-shape rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from salun_torch.kernels import groupnorm_silu as gn
+
+    max_err = {"K4": 0.0, "K4b": 0.0}
+    rows = []
+    gen = torch.Generator(device=device).manual_seed(3)
+    for shape, groups, eps in GN_PATH + GN_RAGGED:
+        c = shape[1]
+        x = 2.0 * torch.randn(shape, generator=gen, device=device) + 0.5
+        dy = torch.randn(shape, generator=gen, device=device)
+        w = 1.0 + 0.3 * torch.randn(c, generator=gen, device=device)
+        bias = 0.3 * torch.randn(c, generator=gen, device=device)
+        y, mean, rstd = gn.groupnorm_silu(x, w, bias, groups, eps)
+        want = gn.groupnorm_silu_reference(x, w, bias, groups, eps)
+        grads = gn.groupnorm_silu_backward(dy, x, w, bias, mean, rstd, groups)
+        want_g = gn.groupnorm_silu_backward_reference(dy, x, w, bias,
+                                                      want[1], want[2],
+                                                      groups)
+        torch.cuda.synchronize()
+        for name, got, ref, tol in (("K4", (y, mean, rstd), want, GN_TOL[0]),
+                                    ("K4b", grads, want_g, GN_TOL[1])):
+            errs = []
+            for g, r in zip(got, ref):
+                errs.append(float((g - r).abs().max()))
+                if not errs[-1] <= tol * max(1.0, float(r.abs().max())):
+                    fail(f"{name} differs from its plain version at "
+                         f"{list(shape)}: max abs err {errs[-1]}")
+            max_err[name] = max(max_err[name], *errs)
+            log(f"{name} {list(shape)} G {groups} eps {eps}: max abs err "
+                f"{max(errs):.3e} (y/dx, then mean, rstd or dscale, dbias: "
+                f"{', '.join(f'{e:.3e}' for e in errs)})")
+        del want, want_g, grads
+        if (shape, groups, eps) not in GN_PATH:
+            continue
+        xl, wl, bl = (t.clone().requires_grad_() for t in (x, w, bias))
+        lib_out = F.silu(F.group_norm(xl, groups, wl, bl, eps))
+        runs = {
+            "K4": (lambda: gn.groupnorm_silu(x, w, bias, groups, eps),
+                   lambda: gn.groupnorm_silu_reference(x, w, bias, groups,
+                                                       eps),
+                   lambda: F.silu(F.group_norm(x, groups, w, bias, eps))),
+            "K4b": (lambda: gn.groupnorm_silu_backward(dy, x, w, bias, mean,
+                                                       rstd, groups),
+                    lambda: gn.groupnorm_silu_backward_reference(
+                        dy, x, w, bias, mean, rstd, groups),
+                    lambda: torch.autograd.grad(lib_out, (xl, wl, bl), dy,
+                                                retain_graph=True))}
+        for name, (kernel, plain, library) in runs.items():
+            ms, plain_ms, lib_ms = (adaptive_ms(kernel), adaptive_ms(plain),
+                                    adaptive_ms(library))
+            n_bytes, n_ops = _gn_work(shape, groups, name == "K4b")
+            bound_ms, bound_by = _bound(n_bytes, n_ops)
+            rows.append({"name": name, "shape": list(shape), "ms": ms,
+                         "plain_ms": plain_ms, "library_ms": lib_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by})
+            log(f"{name} {list(shape)}: {ms:.5f} ms, plain {plain_ms:.5f} "
+                f"ms, F.group_norm + F.silu (two calls"
+                f"{', autograd backward' if name == 'K4b' else ''}) "
+                f"{lib_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+                f"{n_bytes / 1e6:.1f} MB; {n_bytes / ms / 1e6:.1f} GB/s "
+                f"achieved)")
+        del lib_out, xl, wl, bl
+    torch.cuda.empty_cache()
+    entries = []
+    for name, full, line in (("K4", "K4 groupnorm_silu", ":23"),
+                             ("K4b", "K4b groupnorm_silu_backward", ":144")):
+        row = next(r for r in rows if r["name"] == name)
+        entries.append({
+            "name": full, "route": "cuda",
+            "source": "salun_torch/csrc/groupnorm_silu.cu",
+            "replaces": "salun/kernels/groupnorm_silu.py" + line,
+            "shape": row["shape"], "max_abs_err": max_err[name],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
+    return entries, rows
+
+
+def sd_attention_vs_plain(device):
+    """K2 at the U-Net's self- and cross-attention shapes and at D = 512
+    (the VAE), K3a/K3b at the U-Net's: errors against the plain versions,
+    times against the bound, the plain version and SDPA. Returns the
+    per-shape rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from salun_torch.kernels import flash_attention as fa
+
+    rows = []
+    gen = torch.Generator(device=device).manual_seed(4)
+    for shape in ATTN_SD_UNET + ATTN_SD_VAE:
+        b, nq, nk, d = shape
+        q, do = (torch.randn(b, nq, d, generator=gen, device=device)
+                 for _ in range(2))
+        k, v = (torch.randn(b, nk, d, generator=gen, device=device)
+                for _ in range(2))
+        scale = d ** -0.5
+        want_o, want_lse = fa.flash_attention_fwd_reference(q, k, v, scale)
+        delta = (do * want_o).sum(-1)
+        bwd = (q, k, v, do, want_lse, delta, scale)
+        pairs = {"K2": (fa.flash_attention_fwd(q, k, v, scale, True),
+                        (want_o, want_lse))}
+        runs = {"K2": (lambda: fa.flash_attention_fwd(q, k, v, scale),
+                       lambda: fa.flash_attention_fwd_reference(q, k, v,
+                                                                scale),
+                       lambda: F.scaled_dot_product_attention(q, k, v,
+                                                              scale=scale))}
+        if d <= fa.MAX_D_BWD:
+            pairs["K3a"] = ((fa.flash_attention_bwd_dq(*bwd),),
+                            (fa.flash_attention_bwd_dq_reference(*bwd),))
+            pairs["K3b"] = (fa.flash_attention_bwd_dkv(*bwd),
+                            fa.flash_attention_bwd_dkv_reference(*bwd))
+            ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
+            out = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+            sdpa_bwd = (lambda: torch.autograd.grad(out, (ql, kl, vl), do,
+                                                    retain_graph=True))
+            runs["K3a"] = (lambda: fa.flash_attention_bwd_dq(*bwd),
+                           lambda: fa.flash_attention_bwd_dq_reference(*bwd),
+                           sdpa_bwd)
+            runs["K3b"] = (lambda: fa.flash_attention_bwd_dkv(*bwd),
+                           lambda: fa.flash_attention_bwd_dkv_reference(
+                               *bwd), None)
+        torch.cuda.synchronize()
+        for name, (got, want) in pairs.items():
+            for g, w in zip(got, want):
+                err = float((g - w).abs().max())
+                ref = float(w.abs().max())
+                if not err <= ATTN_TOL * max(1.0, ref):
+                    fail(f"{name} differs from its plain version at "
+                         f"{list(shape)}: max abs err {err}")
+                log(f"{name} {list(shape)}: max abs err {err:.3e}, relative "
+                    f"to max|plain| {err / max(ref, 1e-30):.3e}")
+        del pairs, want_o
+        lib = {}
+        for name, (kernel, plain, library) in runs.items():
+            ms, plain_ms = adaptive_ms(kernel), adaptive_ms(plain)
+            lib[name] = (adaptive_ms(library) if library else lib["K3a"])
+            n_bytes, n_ops = _attn_work(name, *shape)
+            bound_ms, bound_by = _bound(n_bytes, n_ops)
+            rows.append({"name": name, "shape": list(shape), "ms": ms,
+                         "plain_ms": plain_ms, "library_ms": lib[name],
+                         "bound_ms": bound_ms, "bound_by": bound_by})
+            what = "SDPA backward (dq, dk, dv)" if name != "K2" else "SDPA"
+            log(f"{name} {list(shape)}: {ms:.5f} ms, plain {plain_ms:.5f} "
+                f"ms, {what} {lib[name]:.5f} ms, bound {bound_ms:.5f} ms "
+                f"({bound_by}: {n_ops / 1e9:.3f} GFLOP; "
+                f"{n_ops / ms / 1e9:.2f} TFLOP/s achieved)")
+        del runs, bwd, q, k, v, do
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ------------------------------------------------------------------ phase 4
@@ -576,6 +816,282 @@ def ddpm_path(device, attn_ms: dict) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ phase 6
+
+
+def write_sd_checkpoint(path: Path, device) -> int:
+    """A CompVis ``.ckpt`` of the three models at the width of
+    ``configs/sd/v1-inference.yaml`` with seeded random weights; no layer
+    is left at zero (the zero-initialised ``proj_out``, ``out_layers.3``
+    and ``out.2`` would zero every upstream gradient) and every norm's
+    affine is moved off (1, 0). Returns the U-Net's parameter count."""
+    import torch
+
+    from salun_torch.ckpt import save_compvis
+    from salun_torch.kernels.groupnorm_silu import GroupNormSiLU
+    from salun_torch.sd.config import load_sd_config, modules_from_config
+
+    sd = modules_from_config(load_sd_config(str(SD_CONFIG)), device, seed=0)
+    gen = torch.Generator(device=device).manual_seed(1)
+
+    def randn(t, std):
+        return std * torch.randn(t.shape, generator=gen, device=device)
+
+    norms = (torch.nn.GroupNorm, torch.nn.LayerNorm, GroupNormSiLU)
+    with torch.no_grad():
+        for part in (sd.unet, sd.vae, sd.clip):
+            for m in part.modules():
+                if isinstance(m, norms):
+                    m.weight.copy_(1.0 + randn(m.weight, 0.1))
+                    m.bias.copy_(randn(m.bias, 0.1))
+            for name, t in part.named_parameters():
+                if not bool(t.any()):  # zero-initialised: re-draw
+                    fan_in = t[0].numel() if t.dim() > 1 else 1
+                    t.copy_(randn(t, 0.1 / math.sqrt(fan_in)))
+                if not bool(t.any()):
+                    fail(f"SD weight {name} is still zero")
+    n_unet = sum(t.numel() for t in sd.unet.parameters())
+    log(f"SD seeded weights: U-Net {n_unet}, VAE "
+        f"{sum(t.numel() for t in sd.vae.parameters())}, CLIP "
+        f"{sum(t.numel() for t in sd.clip.parameters())} parameters "
+        f"(remat {sd.unet.cfg.remat})")
+    save_compvis(str(path), sd)
+    return n_unet
+
+
+def write_imagenette_folder(root: Path) -> None:
+    """``imagenette2/train/<wnid>/`` with SD_PER_CLASS non-square (400×320)
+    seeded PNGs per class, so the loader's resize and center crop run."""
+    import numpy as np
+
+    from salun_torch.cli.ddpm_sample import write_png
+
+    rng = np.random.default_rng(5)
+    for c in range(10):
+        d = root / "imagenette2" / "train" / f"n{c:08d}"
+        d.mkdir(parents=True, exist_ok=True)
+        for i in range(SD_PER_CLASS):
+            write_png(str(d / f"{i}.png"),
+                      rng.integers(0, 256, (320, 400, 3)).astype(np.uint8))
+
+
+def sd_step_attention_ms(cfg, rows) -> tuple:
+    """(K2, K3a + K3b) ms of one random_label step from the phase-3
+    times at its shapes: three VAE encodes (one K2 each), three U-Net
+    forwards plus the remat recompute of two (each attention site one K2)
+    and two backwards (K3a and K3b per site)."""
+    t = {(r["name"], tuple(r["shape"])): r["ms"] for r in rows}
+    u = cfg.unet
+    side = SD_IMAGE // 8
+    sites = []
+    for level, mult in enumerate(u.channel_mult):
+        if 2 ** level in u.attention_resolutions:
+            sites += [(level, mult)] * (2 * u.num_res_blocks + 1)
+    sites.append((len(u.channel_mult) - 1, u.channel_mult[-1]))  # middle
+    fwd = bwd = 0.0
+    for level, mult in sites:
+        n = (side >> level) ** 2
+        d = mult * u.model_channels // u.num_heads
+        for nk in (n, cfg.clip.max_length):  # attn1, attn2
+            shape = (SD_BS * u.num_heads, n, nk, d)
+            fwd += u.transformer_depth * t[("K2", shape)]
+            bwd += u.transformer_depth * (t[("K3a", shape)]
+                                          + t[("K3b", shape)])
+    vae = t[("K2", (SD_BS, side * side, side * side, 512))]
+    n_fwd = 3 + (2 if u.remat else 0)
+    return 3 * vae + n_fwd * fwd, 2 * bwd
+
+
+def sd_path(device, attn_rows) -> dict:
+    """The SD SalUn chain through the port's three CLIs; returns the
+    launch counts of the whole chain."""
+    import gc
+    import os
+
+    import torch
+
+    from salun_torch.ckpt import load_compvis_state_dict, load_sd_mask
+    from salun_torch.cli import sd_generate_images, sd_train
+    from salun_torch.diffusion.sampling import ldm_uniform_timesteps
+    from salun_torch.kernels import flash_attention as fa
+    from salun_torch.kernels import groupnorm_silu as gn
+    from salun_torch.kernels.masked_update import masked_sgd_update
+    from salun_torch.sd.config import load_sd_config
+    from salun_torch.sd.data import read_prompts_csv
+    from salun_torch.sd.unet import kernel_sites
+
+    os.environ["SALUN_CLIP_BPE"] = str(SD_MERGES)
+    work = WORK / "sd"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ckpt = work / "sd-v1-seeded.ckpt"
+    n_unet = write_sd_checkpoint(ckpt, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    write_imagenette_folder(work / "data")
+    rows = read_prompts_csv(str(SD_PROMPTS))[:SD_ROWS]
+    csv = work / "prompts.csv"
+    csv.write_text("case_number,prompt,evaluation_seed\n" + "".join(
+        f"{r['case_number']},{r['prompt']},{r['evaluation_seed']}\n"
+        for r in rows))
+    cfg = load_sd_config(str(SD_CONFIG))
+    log(f"SD cuts: {SD_PER_CLASS} forget images (of 16 per class, 10 "
+        f"classes, synthetic non-square PNGs) instead of 64; random_label "
+        f"{SD_EPOCHS} epochs instead of 5 (bs {SD_BS}, lr {SD_LR}, alpha "
+        f"{SD_ALPHA}, full, remat); {SD_ROWS} prompt rows x {SD_SAMPLES} "
+        f"samples at {SD_STEPS} DDIM steps instead of 100, guidance "
+        f"{SD_GUIDANCE}, {SD_IMAGE}x{SD_IMAGE}; synthetic BPE merges")
+
+    kernels = {"K1 masked_sgd_update": masked_sgd_update,
+               "K2 flash_attention_fwd": fa.flash_attention_fwd,
+               "K3a flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+               "K3b flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+               "K4 groupnorm_silu": gn.groupnorm_silu,
+               "K4b groupnorm_silu_backward": gn.groupnorm_silu_backward}
+
+    def counts():
+        return {k: f.launches for k, f in kernels.items()}
+
+    def since(before):
+        return {k: n - before[k] for k, n in counts().items()}
+
+    common = ["--config", str(SD_CONFIG), "--ckpt_path", str(ckpt),
+              "--data", str(work / "data"), "--image_size", str(SD_IMAGE),
+              "--batch_size", str(SD_BS), "--class_to_forget", "0",
+              "--device", str(device)]
+    for f in kernels.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    sd_train.main(["generate_mask", *common, "--num_samples",
+                   str(SD_PER_CLASS), "--threshold", "0.5",
+                   "--save_dir", str(work / "mask")])
+    t_mask = time.perf_counter() - t0
+    got = {"mask": counts()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    mask_file = work / "mask" / "mask" / "0" / "with_0.5.pt"
+    before = counts()
+    result = sd_train.main(["random_label", *common, "--mask_path",
+                            str(mask_file), "--epochs", str(SD_EPOCHS),
+                            "--lr", str(SD_LR), "--alpha", str(SD_ALPHA),
+                            "--train_method", "full", "--remat",
+                            "--save_dir", str(work / "rl")])
+    got["random_label"] = since(before)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = counts()
+    stats = sd_generate_images.main([
+        "--prompts_path", str(csv), "--config", str(SD_CONFIG),
+        "--ckpt_path", str(work / "rl" / "compvis.ckpt"),
+        "--save_path", str(work / "images"), "--num_samples",
+        str(SD_SAMPLES), "--ddim_steps", str(SD_STEPS), "--guidance_scale",
+        str(SD_GUIDANCE), "--image_size", str(SD_IMAGE), "--device",
+        str(device)])
+    torch.cuda.synchronize()
+    got["sample"] = since(before)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # exact-k 0.5 mask over the U-Net
+    mask = load_sd_mask(str(mask_file), device)
+    n_mask = sum(v.numel() for v in mask.values())
+    ones = int(sum(int(v.sum()) for v in mask.values()))
+    if n_mask != n_unet or ones != int(n_unet * 0.5):
+        fail(f"SD 0.5 mask has {ones} ones of {n_mask}, want "
+             f"{int(n_unet * 0.5)} of {n_unet}")
+    log(f"SD mask 0.5: exactly {ones} of {n_unet} ones")
+
+    # masked-out U-Net weights pinned to θ₀ bitwise; VAE and CLIP unchanged
+    theta0 = load_compvis_state_dict(str(ckpt))
+    after = load_compvis_state_dict(str(work / "rl" / "compvis.ckpt"))
+    if set(theta0) != set(after):
+        fail("compvis.ckpt holds other keys than the seeded checkpoint")
+    moved = 0
+    prefix = "model.diffusion_model."
+    for key, new in after.items():
+        new, old = new.to(device), theta0[key].to(device)
+        if not key.startswith(prefix):
+            if not torch.equal(new, old):
+                fail(f"frozen SD weight {key} changed")
+            continue
+        keep = mask[key[len(prefix):]] > 0
+        if not torch.equal(new[~keep], old[~keep]):
+            fail(f"SD {key}: a masked-out weight left θ₀")
+        moved += int((new[keep] != old[keep]).sum())
+    if moved == 0:
+        fail("random_label moved no kept weight")
+    log(f"after random_label: every masked-out U-Net weight equals θ₀ "
+        f"bitwise, the VAE and CLIP are unchanged bitwise; {moved} kept "
+        f"weights moved")
+    del theta0, after, mask
+
+    # launches as the path implies
+    unet = kernel_sites(cfg.unet)
+    vae_k4 = {"enc": 2 * len(cfg.vae.ch_mult) * cfg.vae.num_res_blocks + 5,
+              "dec": 2 * len(cfg.vae.ch_mult) * (cfg.vae.num_res_blocks + 1)
+              + 5}
+    n_batches = -(-SD_PER_CLASS // SD_BS)
+    n_steps = SD_EPOCHS * (SD_PER_CLASS // SD_BS)
+    n_ddim = len(ldm_uniform_timesteps(cfg.timesteps, SD_STEPS)[:-1])
+    k2_fwd, k4_fwd = unet["k2"], unet["k4"]
+    k2_re, k4_re = unet["k2_remat"], unet["k4_remat"]
+    names = list(kernels)
+
+    def want(k1, k2, k3, k4, k4b):
+        return dict(zip(names, (k1, k2, k3, k3, k4, k4b)))
+
+    # mask: per batch a VAE encode, one U-Net forward with its backward
+    # (and the remat recompute); random_label: per step three VAE encodes,
+    # three U-Net forwards (remain, forget, pseudo) and two backwards;
+    # sampling: per row one CFG forward per DDIM step and a VAE decode
+    expect = {
+        "mask": want(0, n_batches * (1 + k2_fwd + k2_re), n_batches * k2_fwd,
+                     n_batches * (vae_k4["enc"] + k4_fwd + k4_re),
+                     n_batches * k4_fwd),
+        "random_label": want(0, n_steps * (3 + 3 * k2_fwd + 2 * k2_re),
+                             n_steps * 2 * k2_fwd,
+                             n_steps * (3 * vae_k4["enc"] + 3 * k4_fwd
+                                        + 2 * k4_re),
+                             n_steps * 2 * k4_fwd),
+        "sample": want(0, SD_ROWS * (n_ddim * k2_fwd + 1), 0,
+                       SD_ROWS * (n_ddim * k4_fwd + vae_k4["dec"]), 0)}
+    if got != expect:
+        fail(f"SD launches {got}, the path implies {expect}")
+    log(f"SD launches as the path implies (per U-Net forward {k2_fwd} K2, "
+        f"{k4_fwd} K4; remat recompute {k2_re} K2, {k4_re} K4): mask "
+        f"{got['mask']} ({n_batches} batches), random_label "
+        f"{got['random_label']} ({n_steps} steps), sampling "
+        f"{got['sample']} ({SD_ROWS} rows x {n_ddim} steps)")
+
+    losses = result["losses"]
+    if len(losses) != n_steps or not all(map(math.isfinite, losses)):
+        fail(f"random_label losses {losses}")
+    pngs = sorted(os.listdir(work / "images"))
+    want_pngs = sorted(f"{r['case_number']}_{i}.png" for r in rows
+                       for i in range(SD_SAMPLES))
+    if not (stats["finite"] and 0.0 <= stats["min"] <= stats["max"] <= 1.0
+            and stats["images"] == SD_ROWS * SD_SAMPLES
+            and pngs == want_pngs):
+        fail(f"SD images {stats}, files {pngs}")
+    log(f"random_label losses finite: {[round(x, 5) for x in losses]}; "
+        f"{stats['images']} images finite in [{stats['min']:.4f}, "
+        f"{stats['max']:.4f}], PNGs {pngs}")
+    step_ms = result["ms_per_step"]
+    log(f"SD seconds: mask generation {t_mask:.3f} (whole CLI call, "
+        f"{SD_PER_CLASS} images), random_label {step_ms:.3f} "
+        f"ms/step over steps 2-{n_steps} (first step "
+        f"{result['seconds']['first_step']:.3f} s), sampling "
+        f"{stats['seconds']:.3f} s ({stats['images']} images, {n_ddim} "
+        f"steps)")
+    k2_ms, k3_ms = sd_step_attention_ms(cfg, attn_rows)
+    log(f"random_label step: K2 {k2_ms:.3f} ms + K3a/K3b {k3_ms:.3f} ms = "
+        f"{k2_ms + k3_ms:.3f} ms of {step_ms:.3f} ms "
+        f"({100 * (k2_ms + k3_ms) / step_ms:.1f}%) at the phase-3 times")
+    total = {k: sum(g[k] for g in got.values()) for k in names}
+    shutil.rmtree(work, ignore_errors=True)
+    return total
+
+
 def main() -> None:
     try:
         import torch
@@ -605,13 +1121,20 @@ def main() -> None:
     kernels = [k1_vs_plain(device)]
     attn_entries, attn_ms = attention_vs_plain(device)
     kernels += attn_entries
+    gn_entries, _ = groupnorm_vs_plain(device)
+    kernels += gn_entries
+    sd_attn_rows = sd_attention_vs_plain(device)
     masks_card_vs_cpu(device)
 
-    launches = main_path(device, kernels[0]["ms"])  # CLIs: TF32 on
-    launches.update(ddpm_path(device, attn_ms))
+    # the main paths through the CLIs (TF32 on), each counted on its own
+    by_path = {"classification": main_path(device, kernels[0]["ms"]),
+               "ddpm": ddpm_path(device, attn_ms),
+               "sd": sd_path(device, sd_attn_rows)}
     log(f"TF32 on the main paths: {tf32_settings()}")
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()
+                                 if k["name"] in n}
+        k["launches"] = sum(k["launches_by_path"].values())
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on its main path")
 

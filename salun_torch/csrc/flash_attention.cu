@@ -14,7 +14,8 @@
 //
 // Layout: single head, q [B, Nq, D], k/v [B, Nk, D], fp32, contiguous,
 // 16-byte aligned; any Nq, Nk ≥ 1 (the ragged last tile is masked), any
-// D ≤ 256 that is a multiple of 8, Nq ≠ Nk allowed.
+// D that is a multiple of 8, up to 512 for K2 and 256 for K3a/K3b, Nq ≠ Nk
+// allowed.
 //
 // Bound: operations. At the DDPM training shape (B 128, N 256, D 256) K2
 // does 4·B·N²·D = 8.6 GFLOP on 134 MB, K3a 6·B·N²·D and K3b 8·B·N²·D on
@@ -34,8 +35,13 @@
 // shuffles among the 8 threads that share a row. Tiles are 32 rows, so
 // the DDPM mid block (N = 16) is one masked tile and D = 256 fits: K2
 // uses 104 KB of shared memory (two blocks per SM), K3a and K3b about
-// 140 KB (one block per SM), set with cudaFuncSetAttribute. TMA, wgmma
-// and lower precisions are later work.
+// 140 KB (one block per SM), set with cudaFuncSetAttribute. Above D = 256
+// (the SD VAE's mid-block attention, D = 512) K2 keeps one row per thread
+// (R = 1, 256 threads): each thread's accumulator is then 1 × D/8 floats
+// (64 at D = 512) instead of 2 × D/8, which would spill, and the three
+// 32-row tiles of 516 floats plus the score tile take 202 KB of the
+// 227 KB a block may use (one block per SM). TMA, wgmma and lower
+// precisions are later work.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -46,7 +52,8 @@ namespace {
 constexpr int TILE = 32;       // rows of a q-tile and of a k-tile
 constexpr int LANES = 8;       // threads that share one row of a tile
 constexpr int SLD = TILE + 1;  // row stride of a score tile in smem
-constexpr int MAX_D = 256;
+constexpr int MAX_D_FWD = 512;  // K2
+constexpr int MAX_D_BWD = 256;  // K3a, K3b
 
 __host__ __device__ constexpr int row_stride(int d) { return d + 4; }
 
@@ -455,8 +462,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
 
 // ------------------------------------------------------------- launchers
 
-bool shape_ok(int batch, int nq, int nk, int d) {
-  return batch >= 1 && nq >= 1 && nk >= 1 && d >= 8 && d <= MAX_D &&
+bool shape_ok(int batch, int nq, int nk, int d, int max_d) {
+  return batch >= 1 && nq >= 1 && nk >= 1 && d >= 8 && d <= max_d &&
          d % 8 == 0;
 }
 
@@ -478,13 +485,14 @@ int launch(Kernel kernel, int threads, int64_t blocks, size_t smem,
   return (int)cudaGetLastError();
 }
 
+// Two rows per thread up to D = 256, one above (see the note at the top).
 template <int NG>
 int fwd_ng(const float* q, const float* k, const float* v, float* o,
            float* lse, int batch, int nq, int nk, int d, float scale,
            void* stream) {
-  return launch(flash_fwd_kernel<FWD_R, NG>, threads_for(FWD_R),
-                grid_for(batch, nq), fwd_smem(d), stream, q, k, v, o, lse,
-                nq, nk, d, scale);
+  constexpr int R = NG <= 8 ? FWD_R : 1;
+  return launch(flash_fwd_kernel<R, NG>, threads_for(R), grid_for(batch, nq),
+                fwd_smem(d), stream, q, k, v, o, lse, nq, nk, d, scale);
 }
 
 template <int NG>
@@ -520,6 +528,20 @@ int dkv_ng(const float* q, const float* k, const float* v, const float* dout,
     default: return (int)cudaErrorInvalidValue; \
   }
 
+// The same for K2 up to D = 512.
+#define SALUN_DISPATCH_NG_FWD(d, FN, ...)    \
+  switch (((d) + 31) / 32) {                 \
+    case 9: return FN<9>(__VA_ARGS__);       \
+    case 10: return FN<10>(__VA_ARGS__);     \
+    case 11: return FN<11>(__VA_ARGS__);     \
+    case 12: return FN<12>(__VA_ARGS__);     \
+    case 13: return FN<13>(__VA_ARGS__);     \
+    case 14: return FN<14>(__VA_ARGS__);     \
+    case 15: return FN<15>(__VA_ARGS__);     \
+    case 16: return FN<16>(__VA_ARGS__);     \
+    default: SALUN_DISPATCH_NG(d, FN, __VA_ARGS__) \
+  }
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes). Each launches on `stream`,
@@ -530,8 +552,10 @@ int dkv_ng(const float* q, const float* k, const float* v, const float* dout,
 extern "C" int salun_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, void* lse, int batch, int nq, int nk,
                                int d, float scale, void* stream) {
-  if (!shape_ok(batch, nq, nk, d)) return (int)cudaErrorInvalidValue;
-  SALUN_DISPATCH_NG(d, fwd_ng, static_cast<const float*>(q),
+  if (!shape_ok(batch, nq, nk, d, MAX_D_FWD)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  SALUN_DISPATCH_NG_FWD(d, fwd_ng, static_cast<const float*>(q),
                     static_cast<const float*>(k),
                     static_cast<const float*>(v), static_cast<float*>(o),
                     static_cast<float*>(lse), batch, nq, nk, d, scale,
@@ -544,7 +568,9 @@ extern "C" int salun_flash_bwd_dq(const void* q, const void* k,
                                   const void* lse, const void* delta,
                                   void* dq, int batch, int nq, int nk, int d,
                                   float scale, void* stream) {
-  if (!shape_ok(batch, nq, nk, d)) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(batch, nq, nk, d, MAX_D_BWD)) {
+    return (int)cudaErrorInvalidValue;
+  }
   SALUN_DISPATCH_NG(d, dq_ng, static_cast<const float*>(q),
                     static_cast<const float*>(k),
                     static_cast<const float*>(v),
@@ -560,7 +586,9 @@ extern "C" int salun_flash_bwd_dkv(const void* q, const void* k,
                                    const void* lse, const void* delta,
                                    void* dk, void* dv, int batch, int nq,
                                    int nk, int d, float scale, void* stream) {
-  if (!shape_ok(batch, nq, nk, d)) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(batch, nq, nk, d, MAX_D_BWD)) {
+    return (int)cudaErrorInvalidValue;
+  }
   SALUN_DISPATCH_NG(d, dkv_ng, static_cast<const float*>(q),
                     static_cast<const float*>(k),
                     static_cast<const float*>(v),

@@ -5,8 +5,9 @@ DDPM/functions/denoising.py:10-131, same update equations).
 Each chain is a Python loop over the (t_i, t_{i−1}) pairs; the per-step
 noise comes from a ``torch.Generator`` or is injected (``noise``: one
 tensor per step). CFG sampling runs one U-Net forward per step on the
-doubled batch (``cfg_eps``). ``plms_steps`` is SD's and waits for that
-slice.
+doubled batch (``cfg_eps``). SD's DDIM uses the ldm grid
+(:func:`ldm_uniform_timesteps`) and ᾱ₀ at the −1 boundary
+(``final_alpha_bar``); ``plms_steps`` waits (ROADMAP queue 1, slice D).
 """
 
 from __future__ import annotations
@@ -39,17 +40,29 @@ def _alpha(schedule, n, t, device):
                                          device=device)).reshape(-1, 1, 1, 1)
 
 
+def ldm_uniform_timesteps(num_ddpm_timesteps: int, num_steps: int) -> list:
+    """The ldm 'uniform' DDIM grid ``range(0, T, T // S) + 1``
+    (SD/ldm/modules/diffusionmodules/util.py make_ddim_timesteps; the DDPM
+    workload's :func:`timestep_sequence` is not shifted). Use it with
+    ``final_alpha_bar=alphas_cumprod[0]``."""
+    c = num_ddpm_timesteps // num_steps
+    return [s + 1 for s in range(0, num_ddpm_timesteps, c)]
+
+
 def generalized_steps(eps_fn: Callable, x: torch.Tensor, seq: Sequence[int],
                       schedule: DiffusionSchedule, *, eta: float = 0.0,
                       generator: Optional[torch.Generator] = None,
-                      noise=None):
+                      noise=None, final_alpha_bar: float = 1.0):
     """DDIM chain (denoising.py:10-33). ``eps_fn(x, t_batch) -> eps``.
+    ``final_alpha_bar`` is ᾱ at the −1 boundary: 1.0 (DDPM's
+    compute_alpha) or, for ldm's DDIMSampler, ᾱ₀.
     Returns ``(x_final, last x0 prediction)``."""
     n = x.shape[0]
     x0_t = None
     for i, (t, t_next) in enumerate(_seq_pairs(seq)):
         at = _alpha(schedule, n, t, x.device)
-        at_next = _alpha(schedule, n, t_next, x.device)
+        at_next = (_alpha(schedule, n, t_next, x.device) if t_next >= 0
+                   else torch.full_like(at, final_alpha_bar))
         et = eps_fn(x, torch.full((n,), float(t), device=x.device))
         x0_t = (x - et * torch.sqrt(1.0 - at)) / torch.sqrt(at)
         c1 = eta * torch.sqrt((1 - at / at_next) * (1 - at_next) / (1 - at))

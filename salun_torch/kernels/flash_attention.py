@@ -3,8 +3,10 @@
 
 Counterpart of ``salun/kernels/flash_attention.py``. Single head: q
 ``[B, Nq, D]``, k/v ``[B, Nk, D]``, fp32, contiguous (callers fold heads
-into B). The kernels take any Nq, Nk ≥ 1 and any D ≤ 256 that is a
-multiple of 8; anything else raises.
+into B). The kernels take any Nq, Nk ≥ 1 and any D that is a multiple of
+8, up to 512 for K2 and 256 for K3a/K3b; anything else raises. The
+autograd function therefore raises for a gradient at D > 256 (the SD VAE's
+D = 512 attention runs frozen, forward only).
 
 Each wrapper runs its plain PyTorch version (``*_reference``) for tensors
 on the CPU, and launches its kernel for tensors on a CUDA device (building
@@ -22,7 +24,8 @@ import ctypes
 
 import torch
 
-MAX_D = 256
+MAX_D_FWD = 512  # K2
+MAX_D_BWD = 256  # K3a, K3b
 
 
 # ------------------------------------------------------- plain versions
@@ -66,7 +69,7 @@ def flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, scale):
 # ------------------------------------------------------------- wrappers
 
 
-def _check(q, k, v, **more):
+def _check(q, k, v, max_d=MAX_D_BWD, **more):
     """Device, dtype, shape, contiguity and alignment; returns
     ``(B, Nq, Nk, D)``."""
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
@@ -78,9 +81,9 @@ def _check(q, k, v, **more):
                          f"match q {tuple(q.shape)}")
     if b < 1 or nq < 1 or nk < 1:
         raise ValueError("empty attention")
-    if d % 8 or not 8 <= d <= MAX_D:
-        raise ValueError(f"head dim {d}: the kernels take multiples of 8 up "
-                         f"to {MAX_D}")
+    if d % 8 or not 8 <= d <= max_d:
+        raise ValueError(f"head dim {d}: the kernel takes multiples of 8 up "
+                         f"to {max_d}")
     shapes = {"q": (b, nq, d), "k": (b, nk, d), "v": (b, nk, d),
               "do": (b, nq, d), "lse": (b, nq), "delta": (b, nq)}
     for name, t in {"q": q, "k": k, "v": v, **more}.items():
@@ -115,7 +118,7 @@ def _ptr(t):
 
 def flash_attention_fwd(q, k, v, scale: float, need_lse: bool = False):
     """K2: ``(o, lse)``, lse ``[B, Nq]`` fp32 when ``need_lse`` else None."""
-    b, nq, nk, d = _check(q, k, v)
+    b, nq, nk, d = _check(q, k, v, MAX_D_FWD)
     if q.device.type == "cpu":
         o, lse = flash_attention_fwd_reference(q, k, v, scale)
         return o, (lse if need_lse else None)
@@ -184,6 +187,9 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
+        if q.shape[-1] > MAX_D_BWD:
+            raise ValueError(f"head dim {q.shape[-1]}: the backward kernels "
+                             f"K3a/K3b take D up to {MAX_D_BWD}")
         o, lse = flash_attention_fwd(q, k, v, scale, need_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.scale = scale

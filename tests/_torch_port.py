@@ -126,3 +126,57 @@ def perturb_vectors(params, rng, scale=0.1):
 
 def nhwc(t):
     return np.asarray(t.detach().cpu().numpy()).transpose(0, 2, 3, 1)
+
+
+# ------------------------------------------------------------- SD (tiny)
+
+
+def sd_tiny_jax(num_timesteps=40):
+    """The tiny LatentDiffusion of ``tests/test_sd.py:17-25`` (U-Net ch 32,
+    VAE ch 32, CLIP width 24 with 2 layers, latents 8×8)."""
+    from salun.sd import CLIPTextConfig, SDModules, SDUNetConfig, VAEConfig
+
+    unet = SDUNetConfig(in_channels=4, out_channels=4, model_channels=32,
+                        num_res_blocks=1, attention_resolutions=(1, 2),
+                        channel_mult=(1, 2), num_heads=2, context_dim=24,
+                        transformer_depth=1)
+    vae = VAEConfig(ch=32, ch_mult=(1, 2, 2, 2), num_res_blocks=1,
+                    z_channels=4, embed_dim=4)
+    clip = CLIPTextConfig(vocab_size=49408, hidden_size=24, num_layers=2,
+                          num_heads=2, max_length=8)
+    return SDModules.create(unet, vae, clip, num_timesteps=num_timesteps)
+
+
+def sd_perturbed_params(jax_modules, seed=0, scale=0.05):
+    """Numpy params of ``jax_modules`` with every leaf moved by
+    ``scale``·N(0, 1): no layer stays at its zero (or unit) init, so the
+    U-Net's zero-initialised output convs pass gradients and every name
+    and layout fault shows."""
+    params = jax_modules.init(jax.random.PRNGKey(seed), image_size=8)
+    rng = np.random.default_rng(seed + 1)
+    return jax.tree.map(
+        lambda p: (np.asarray(p) + scale * rng.standard_normal(p.shape)
+                   ).astype(np.float32), params)
+
+
+def sd_twin(jax_modules, params, remat=False):
+    """The port's ``SDModules`` for the same configs, carrying ``params``
+    through the port's bridge (strict load)."""
+    from dataclasses import fields
+
+    from salun_torch.ckpt import load_sd_modules, sd_state_dict_from_jax
+    from salun_torch.sd import (CLIPTextConfig, SDModules, SDUNetConfig,
+                                VAEConfig)
+
+    def same(cls, cfg, **kw):
+        args = {f.name: getattr(cfg, f.name) for f in fields(cls)
+                if hasattr(cfg, f.name)}
+        return cls(**{**args, **kw})
+
+    sd = SDModules.create(
+        same(SDUNetConfig, jax_modules.unet.cfg, remat=remat),
+        same(VAEConfig, jax_modules.vae.cfg),
+        same(CLIPTextConfig, jax_modules.clip.cfg),
+        num_timesteps=jax_modules.schedule.num_timesteps)
+    load_sd_modules(sd, sd_state_dict_from_jax(params))
+    return sd

@@ -140,8 +140,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
     lse, delta = torch.zeros(b, n), torch.zeros(b, n)
     if bad == "d12":
         q, k, v = (torch.zeros(b, n, 12) for _ in range(3))
-    elif bad == "d264":
+    elif bad == "d264":  # K3a/K3b take D up to 256, K2 up to 512
         q, k, v = (torch.zeros(b, n, 264) for _ in range(3))
+        with pytest.raises(ValueError):
+            fa.flash_attention_bwd_dq(q, k, v, q, lse, delta, 0.125)
+        with pytest.raises(ValueError):
+            fa.flash_attention_bwd_dkv(q, k, v, q, lse, delta, 0.125)
+        with pytest.raises(ValueError):
+            scaled_dot_attention(*(t.requires_grad_() for t in (q, k, v)))
+        q, k, v = (torch.zeros(b, n, 520) for _ in range(3))
     elif bad == "bf16":
         q = q.bfloat16()
     elif bad == "mismatch":

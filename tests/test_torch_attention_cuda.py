@@ -88,6 +88,25 @@ def test_kernels_match_plain_on_card(cuda, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 4096, 4096, 512), (2, 64, 64, 512),
+                                   (2, 33, 77, 264), (1, 1, 5, 512)],
+                         ids=str)
+def test_k2_wide_heads_match_plain_on_card(cuda, shape):
+    """K2 above D = 256 (one row per thread): the SD VAE mid block's
+    [4, 4096, 4096, 512] and ragged shapes."""
+    b, nq, nk, d = shape
+    q, k, v, _ = _inputs(cuda, b, nq, nk, d)
+    scale = d ** -0.5
+    before = fa.flash_attention_fwd.launches
+    o, lse = fa.flash_attention_fwd(q, k, v, scale, need_lse=True)
+    want_o, want_lse = fa.flash_attention_fwd_reference(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == before + 1
+    _close(o, want_o)
+    _close(lse, want_lse)
+
+
+@pytest.mark.cuda
 def test_autograd_on_card_matches_cpu_plain(cuda):
     """The autograd function with K2/K3 on the card against the same
     function on the CPU (plain forward and backward)."""
@@ -120,8 +139,9 @@ def test_unsupported_input_raises_on_card(cuda, bad):
     before = fa.flash_attention_fwd.launches
     if bad == "d12":
         q, k, v = (t[..., :12].contiguous() for t in (q, k, v))
-    elif bad == "d264":
-        q, k, v = (torch.randn(b, n, 264, device=cuda) for _ in range(3))
+    elif bad == "d264":  # a gradient: K3a/K3b take D up to 256
+        q, k, v = (torch.randn(b, n, 264, device=cuda, requires_grad=True)
+                   for _ in range(3))
     elif bad == "bf16":
         q = q.bfloat16()
     elif bad == "strided":

@@ -1,7 +1,7 @@
 """The port stands alone: importing every ``salun_torch`` module (in a
-fresh interpreter, since this suite's conftest imports JAX), the DDPM
-slice and its CLIs included, pulls in neither ``jax`` nor the JAX package
-``salun``, and no port file names either in an import statement."""
+fresh interpreter, since this suite's conftest imports JAX), the DDPM and
+SD slices and their CLIs included, pulls in neither ``jax`` nor the JAX
+package ``salun``, and no port file names either in an import statement."""
 
 import ast
 import pathlib
@@ -28,7 +28,14 @@ def test_importing_every_port_module_loads_no_jax():
               "salun_torch.diffusion.sampling", "salun_torch.diffusion.runner",
               "salun_torch.diffusion.losses", "salun_torch.diffusion.ema",
               "salun_torch.data.ddpm_data", "salun_torch.cli.ddpm_config",
-              "salun_torch.cli.ddpm_train", "salun_torch.cli.ddpm_sample"):
+              "salun_torch.cli.ddpm_train", "salun_torch.cli.ddpm_sample",
+              "salun_torch.kernels.groupnorm_silu",
+              "salun_torch.sd.tokenizer", "salun_torch.sd.clip_text",
+              "salun_torch.sd.vae", "salun_torch.sd.unet",
+              "salun_torch.sd.ldm", "salun_torch.sd.config",
+              "salun_torch.sd.data", "salun_torch.sd.trainers",
+              "salun_torch.ckpt.sd_import", "salun_torch.cli.sd_train",
+              "salun_torch.cli.sd_generate_images"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
