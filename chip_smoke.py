@@ -18,7 +18,11 @@ Phases, each of which fails the script (exit code 1) when it fails:
    against their plain versions at the DDPM path's shapes ([B, N, D] =
    [128, 256, 256], [256, 256, 256], [128, 16, 256]) and ragged ones (N =
    77, Nq ≠ Nk, D = 40, 64, 160, 8): max abs and relative error, failing
-   above 1e-4·max(1, max|plain|). Times with CUDA events, the bound, the
+   above 1e-4·max(1, max|plain|); K2 launched twice at [128, 256, 256,
+   256], [32, 1024, 1024, 80] and [4, 4096, 4096, 512] gives bitwise equal
+   o and lse. Times with CUDA events, the bound (K2's operations at the
+   3xTF32 tensor-core roof, 495/3 TFLOP/s, with the fp32 CUDA-core bound
+   beside it; K3a/K3b at the CUDA cores' 67 TFLOP/s), the
    plain version's time and, for K2/K3, the time of
    ``torch.nn.functional.scaled_dot_product_attention`` (forward; backward
    through autograd) on the same tensors, as a yardstick only. K4 and K4b
@@ -71,7 +75,7 @@ Phases, each of which fails the script (exit code 1) when it fails:
    included); losses finite; images in [0, 1], every PNG written. Prints
    the mask-generation seconds, ms per random_label step over steps 2–8
    (and the attention kernels' share of it at the phase-3 times) and the
-   sampling seconds.
+   sampling seconds with K2's share of a sampling row.
 7. A ``{"kernels": [...]}`` line (launches per path and in all), the
    card's name and power limit, and as the last line ``{"ok": true,
    "device": {...}}``.
@@ -96,6 +100,7 @@ WORK = ROOT / "build" / "chip_smoke"
 N_K1 = 11_173_962          # ResNet-18 (CIFAR stem, 10 classes) parameters
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12         # H100 SXM fp32, outside the tensor cores
+TF32X3_FLOPS = 495e12 / 3  # H100 SXM TF32 dense, three products (3xTF32)
 
 # Main-path data: CIFAR-shaped, cut in count from CIFAR-10's 50,000/10,000
 N_TRAIN, N_TEST, N_FORGET = 12_000, 2_000, 1_000
@@ -108,6 +113,9 @@ ATTN_PATH = [(128, 256, 256, 256), (256, 256, 256, 256), (128, 16, 16, 256)]
 ATTN_RAGGED = [(3, 77, 77, 64), (2, 100, 77, 40), (4, 33, 65, 160),
                (2, 1, 5, 8)]
 ATTN_TOL = 1e-4  # × max(1, max|plain|): fp32 sums in other orders
+# K2 launched twice must give the same o and lse, bitwise (no atomics)
+K2_BITWISE = [(128, 256, 256, 256), (32, 1024, 1024, 80),
+              (4, 4096, 4096, 512)]
 
 # DDPM chain: the reference config, cut in count and steps
 DDPM_CONFIG = ROOT / "configs" / "ddpm" / "cifar10_saliency_unlearn.yml"
@@ -189,10 +197,10 @@ def adaptive_ms(fn, budget_ms: float = 150.0) -> float:
     return cuda_time_ms(fn, iters, warmup=1)
 
 
-def _bound(n_bytes: float, n_ops: float):
+def _bound(n_bytes: float, n_ops: float, flops: float = FP32_FLOPS):
     """(ms, "bytes" | "operations"): the larger of the HBM time and the
-    fp32 CUDA-core time."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_FLOPS
+    time of ``n_ops`` at ``flops`` (by default the fp32 CUDA cores')."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / flops
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -282,6 +290,29 @@ def _attn_work(name: str, b: int, nq: int, nk: int, d: int):
     return 4 * (2 * qd + 2 * kd + 2 * rows + 2 * kd), 8 * b * nq * nk * d
 
 
+def _attn_bound(name: str, shape):
+    """(bytes, operations, bound ms, bound_by, roof, CUDA-core bound ms):
+    K2 multiplies on the tensor cores in 3xTF32, K3a/K3b on the CUDA
+    cores in fp32."""
+    n_bytes, n_ops = _attn_work(name, *shape)
+    fp32_ms, fp32_by = _bound(n_bytes, n_ops)
+    if name != "K2":
+        return n_bytes, n_ops, fp32_ms, fp32_by, "fp32 CUDA cores", fp32_ms
+    bound_ms, bound_by = _bound(n_bytes, n_ops, TF32X3_FLOPS)
+    return n_bytes, n_ops, bound_ms, bound_by, "3xTF32 tensor cores", fp32_ms
+
+
+def _k2_bitwise(fa, q, k, v, scale, first, shape) -> None:
+    """K2 launched again on the same inputs gives ``first`` bit for bit."""
+    import torch
+
+    again = fa.flash_attention_fwd(q, k, v, scale, True)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(first, again)):
+        fail(f"K2 is not bitwise deterministic at {list(shape)}")
+    log(f"K2 {list(shape)}: two launches give bitwise equal o and lse")
+
+
 def attention_vs_plain(device):
     """K2, K3a and K3b against their plain versions at the path's and the
     ragged shapes; times at the path's shapes. Returns the three kernel
@@ -306,8 +337,8 @@ def attention_vs_plain(device):
         want_o, want_lse = fa.flash_attention_fwd_reference(q, k, v, scale)
         delta = (do * want_o).sum(-1)
         bwd = (q, k, v, do, want_lse, delta, scale)
-        pairs = {"K2": (fa.flash_attention_fwd(q, k, v, scale, True),
-                        (want_o, want_lse)),
+        k2_out = fa.flash_attention_fwd(q, k, v, scale, True)
+        pairs = {"K2": (k2_out, (want_o, want_lse)),
                  "K3a": ((fa.flash_attention_bwd_dq(*bwd),),
                          (fa.flash_attention_bwd_dq_reference(*bwd),)),
                  "K3b": (fa.flash_attention_bwd_dkv(*bwd),
@@ -323,6 +354,8 @@ def attention_vs_plain(device):
                 if not err <= ATTN_TOL * max(1.0, ref):
                     fail(f"{name} differs from its plain version at "
                          f"{list(shape)}: max abs err {err}")
+        if shape in K2_BITWISE:
+            _k2_bitwise(fa, q, k, v, scale, k2_out, shape)
         if shape not in ATTN_PATH:
             continue
         ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
@@ -344,26 +377,29 @@ def attention_vs_plain(device):
             plain_ms = cuda_time_ms(plain, 10, warmup=2)
             lib_ms = (cuda_time_ms(library, 20, warmup=3) if library
                       else times[("K3a", shape)][2])
-            n_bytes, n_ops = _attn_work(name, *shape)
-            bound_ms, bound_by = _bound(n_bytes, n_ops)
-            times[(name, shape)] = (ms, plain_ms, lib_ms, bound_ms, bound_by)
+            (n_bytes, n_ops, bound_ms, bound_by, roof,
+             fp32_ms) = _attn_bound(name, shape)
+            times[(name, shape)] = (ms, plain_ms, lib_ms, bound_ms, bound_by,
+                                    roof)
             what = "SDPA backward (dq, dk, dv)" if name != "K2" else "SDPA"
             log(f"{name} {list(shape)}: {ms:.5f} ms, plain {plain_ms:.5f} "
                 f"ms, {what} {lib_ms:.5f} ms, bound {bound_ms:.5f} ms "
-                f"({bound_by}: {n_ops / 1e9:.3f} GFLOP, {n_bytes / 1e6:.1f} "
-                f"MB; {n_ops / ms / 1e9:.2f} TFLOP/s achieved)")
+                f"({bound_by}, {roof}: {n_ops / 1e9:.3f} GFLOP, "
+                f"{n_bytes / 1e6:.1f} MB; CUDA-core bound {fp32_ms:.5f} ms; "
+                f"{n_ops / ms / 1e9:.2f} TFLOP/s achieved)")
         del out, ql, kl, vl
     sources = {"K2": ":34", "K3a": ":156", "K3b": ":188"}
     entries = []
     for name, full in names.items():
-        ms, plain_ms, lib_ms, bound_ms, bound_by = times[(name, ATTN_PATH[0])]
+        (ms, plain_ms, lib_ms, bound_ms, bound_by,
+         roof) = times[(name, ATTN_PATH[0])]
         entries.append({
             "name": full, "route": "cuda",
             "source": "salun_torch/csrc/flash_attention.cu",
             "replaces": "salun/kernels/flash_attention.py" + sources[name],
             "shape": list(ATTN_PATH[0]), "max_abs_err": max_err[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": lib_ms})
+            "bound_by": bound_by, "roof": roof, "library_ms": lib_ms})
     return entries, {key: t[0] for key, t in times.items()}
 
 
@@ -488,8 +524,8 @@ def sd_attention_vs_plain(device):
         want_o, want_lse = fa.flash_attention_fwd_reference(q, k, v, scale)
         delta = (do * want_o).sum(-1)
         bwd = (q, k, v, do, want_lse, delta, scale)
-        pairs = {"K2": (fa.flash_attention_fwd(q, k, v, scale, True),
-                        (want_o, want_lse))}
+        k2_out = fa.flash_attention_fwd(q, k, v, scale, True)
+        pairs = {"K2": (k2_out, (want_o, want_lse))}
         runs = {"K2": (lambda: fa.flash_attention_fwd(q, k, v, scale),
                        lambda: fa.flash_attention_fwd_reference(q, k, v,
                                                                 scale),
@@ -520,21 +556,24 @@ def sd_attention_vs_plain(device):
                          f"{list(shape)}: max abs err {err}")
                 log(f"{name} {list(shape)}: max abs err {err:.3e}, relative "
                     f"to max|plain| {err / max(ref, 1e-30):.3e}")
-        del pairs, want_o
+        if shape in K2_BITWISE:
+            _k2_bitwise(fa, q, k, v, scale, k2_out, shape)
+        del pairs, want_o, k2_out
         lib = {}
         for name, (kernel, plain, library) in runs.items():
             ms, plain_ms = adaptive_ms(kernel), adaptive_ms(plain)
             lib[name] = (adaptive_ms(library) if library else lib["K3a"])
-            n_bytes, n_ops = _attn_work(name, *shape)
-            bound_ms, bound_by = _bound(n_bytes, n_ops)
+            (n_bytes, n_ops, bound_ms, bound_by, roof,
+             fp32_ms) = _attn_bound(name, shape)
             rows.append({"name": name, "shape": list(shape), "ms": ms,
                          "plain_ms": plain_ms, "library_ms": lib[name],
                          "bound_ms": bound_ms, "bound_by": bound_by})
             what = "SDPA backward (dq, dk, dv)" if name != "K2" else "SDPA"
             log(f"{name} {list(shape)}: {ms:.5f} ms, plain {plain_ms:.5f} "
                 f"ms, {what} {lib[name]:.5f} ms, bound {bound_ms:.5f} ms "
-                f"({bound_by}: {n_ops / 1e9:.3f} GFLOP; "
-                f"{n_ops / ms / 1e9:.2f} TFLOP/s achieved)")
+                f"({bound_by}, {roof}: {n_ops / 1e9:.3f} GFLOP; CUDA-core "
+                f"bound {fp32_ms:.5f} ms; {n_ops / ms / 1e9:.2f} TFLOP/s "
+                f"achieved)")
         del runs, bwd, q, k, v, do
         torch.cuda.empty_cache()
     return rows
@@ -879,7 +918,8 @@ def sd_step_attention_ms(cfg, rows) -> tuple:
     """(K2, K3a + K3b) ms of one random_label step from the phase-3
     times at its shapes: three VAE encodes (one K2 each), three U-Net
     forwards plus the remat recompute of two (each attention site one K2)
-    and two backwards (K3a and K3b per site)."""
+    and two backwards (K3a and K3b per site); then the K2 ms of one U-Net
+    forward and of one VAE attention at bs 4."""
     t = {(r["name"], tuple(r["shape"])): r["ms"] for r in rows}
     u = cfg.unet
     side = SD_IMAGE // 8
@@ -899,7 +939,7 @@ def sd_step_attention_ms(cfg, rows) -> tuple:
                                           + t[("K3b", shape)])
     vae = t[("K2", (SD_BS, side * side, side * side, 512))]
     n_fwd = 3 + (2 if u.remat else 0)
-    return 3 * vae + n_fwd * fwd, 2 * bwd
+    return 3 * vae + n_fwd * fwd, 2 * bwd, fwd, vae
 
 
 def sd_path(device, attn_rows) -> dict:
@@ -1083,10 +1123,18 @@ def sd_path(device, attn_rows) -> dict:
         f"{result['seconds']['first_step']:.3f} s), sampling "
         f"{stats['seconds']:.3f} s ({stats['images']} images, {n_ddim} "
         f"steps)")
-    k2_ms, k3_ms = sd_step_attention_ms(cfg, attn_rows)
+    k2_ms, k3_ms, fwd_ms, vae_ms = sd_step_attention_ms(cfg, attn_rows)
     log(f"random_label step: K2 {k2_ms:.3f} ms + K3a/K3b {k3_ms:.3f} ms = "
         f"{k2_ms + k3_ms:.3f} ms of {step_ms:.3f} ms "
         f"({100 * (k2_ms + k3_ms) / step_ms:.1f}%) at the phase-3 times")
+    # a sampling row: one CFG-doubled U-Net forward (bs 2 x 2 = 4, the
+    # step's shapes) per DDIM step, then a decode of SD_SAMPLES latents
+    # (its K2 at SD_SAMPLES / SD_BS of the bs-4 time)
+    row_ms = 1e3 * stats["seconds"] / SD_ROWS
+    row_k2 = n_ddim * fwd_ms + vae_ms * SD_SAMPLES / SD_BS
+    log(f"sampling row: K2 {row_k2:.3f} ms ({n_ddim} x {fwd_ms:.3f} ms "
+        f"per U-Net forward + the decode's) of {row_ms:.3f} ms "
+        f"({100 * row_k2 / row_ms:.1f}%) at the phase-3 times")
     total = {k: sum(g[k] for g in got.values()) for k in names}
     shutil.rmtree(work, ignore_errors=True)
     return total

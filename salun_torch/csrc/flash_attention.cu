@@ -17,31 +17,56 @@
 // D that is a multiple of 8, up to 512 for K2 and 256 for K3a/K3b, Nq ≠ Nk
 // allowed.
 //
-// Bound: operations. At the DDPM training shape (B 128, N 256, D 256) K2
-// does 4·B·N²·D = 8.6 GFLOP on 134 MB, K3a 6·B·N²·D and K3b 8·B·N²·D on
-// about as many bytes: 64 to 128 flop per byte, above the H100's fp32
-// ridge (67 TFLOP/s over 3.35 TB/s = 20 flop/byte). The kernels compute in
-// plain fp32 FFMA (no TF32, no tensor cores), so that they agree with their
-// plain PyTorch versions to fp32 rounding; their roof is the 67 TFLOP/s of
-// the CUDA cores.
+// K2 (`salun_flash_fwd`) replaces salun/kernels/flash_attention.py:34
+// `_flash_kernel` and :136 `_kernel_with_lm`, reached through `_flash_call`
+// :83. Bound: operations. It does 4·B·Nq·Nk·D flop (q·kᵀ and p·v): 137
+// GFLOP at the SD VAE's [4, 4096, 4096, 512], 8.6 GFLOP on 134 MB at the
+// DDPM training shape [128, 256, 256, 256], far above the ridge. In fp32
+// the least time is the tensor cores' in 3xTF32: 495 TFLOP/s TF32 dense / 3
+// = 165 TFLOP/s (the CUDA cores' fp32 FFMA roof is 67 TFLOP/s).
 //
-// Design against that bound: every product is a 32×32 tile read from
-// shared memory, where each thread keeps a 2×4 (K2, K3a) or 1×4 (K3b)
-// register tile of scores and 2 (or 1) rows × D/8 columns of the output
-// accumulator, so each 16-byte shared-memory load feeds 4 to 8 FMAs. Rows
-// are padded to D + 4 floats, which keeps the 16-byte loads of eight
-// neighbouring rows free of bank conflicts for every D that is a multiple
-// of 8. The softmax runs in registers, with the row reductions done by
-// shuffles among the 8 threads that share a row. Tiles are 32 rows, so
-// the DDPM mid block (N = 16) is one masked tile and D = 256 fits: K2
-// uses 104 KB of shared memory (two blocks per SM), K3a and K3b about
-// 140 KB (one block per SM), set with cudaFuncSetAttribute. Above D = 256
-// (the SD VAE's mid-block attention, D = 512) K2 keeps one row per thread
-// (R = 1, 256 threads): each thread's accumulator is then 1 × D/8 floats
-// (64 at D = 512) instead of 2 × D/8, which would spill, and the three
-// 32-row tiles of 516 floats plus the score tile take 202 KB of the
-// 227 KB a block may use (one block per SM). TMA, wgmma and lower
-// precisions are later work.
+// K2's design against that bound:
+// - Tensor cores through `mma.sync.m16n8k8` in TF32, three products per
+//   step (3xTF32): each operand x splits into big = tf32(x) and small =
+//   tf32(x − big), and c += a_small·b_big + a_big·b_small + a_big·b_big in
+//   fp32, small terms first. That keeps K2 within about 1e-6 of fp32 (plain
+//   TF32 would give ~5e-4) for both products, s = q·kᵀ and o += p·v.
+// - A block takes BQ = 16·RW query rows (RW row-warps of the MMA's 16
+//   rows: 64 rows up to D = 256, 32 above) and walks the keys in tiles of
+//   BK (64, or 32 at 128 < D ≤ 256 so that two blocks fit an SM), with the
+//   online softmax in fp32 (running max m, denominator l, α = exp(m − m'),
+//   masked columns −∞; the first tile has α = exp(−∞) = 0).
+// - CW column-warps share a row-warp's 16 rows (CW = 1 up to D = 128, 2 up
+//   to 256, 4 above). For s they split the tile's key columns; the row max
+//   and row sum are combined across them through a small shared array, and
+//   p goes through shared memory, so each reads all of it. For o each owns
+//   ⌈D/8/CW⌉ 8-wide column steps of the accumulator, 16·D/(32·CW) ≤ 64
+//   floats a thread, in registers. The template takes the most steps a
+//   warp owns (8 or 16): four instantiations in all, whatever D is.
+// - q stays in shared memory. k passes in D-chunks of ≤ 64 columns and v
+//   in chunks of VR rows (keys) × D, so D = 512 fits and every warp works
+//   on every chunk, through a two-stage ring of 16-byte `cp.async.cg`
+//   copies: the next chunk is in flight while the current one is
+//   multiplied. Rows past Nq or Nk are zero-filled (src-size 0), never read.
+// - Row strides keep every fragment load free of bank conflicts for any D
+//   that is a multiple of 8: q, k and p rows are padded by 4 floats (a
+//   stride of 4·odd floats), v rows to a stride of 8 or 24 mod 32.
+// - No atomics, fixed summation order: the result is the same, bitwise,
+//   from run to run. lse = m + log l is written unless its pointer is null.
+// `wgmma`, TMA and warp specialisation are later work.
+//
+// K3a and K3b: bound operations too (6·B·Nq·Nk·D and 8·B·Nq·Nk·D flop on
+// about as many bytes as K2, 64 to 128 flop per byte at the DDPM shape).
+// They compute in plain fp32 FFMA on the CUDA cores (roof 67 TFLOP/s), so
+// that they agree with their plain PyTorch versions to fp32 rounding.
+// Every product is a 32×32 tile read from shared memory, where each thread
+// keeps a 2×4 (K3a) or 1×4 (K3b) register tile of scores and 2 (or 1) rows
+// × D/8 columns of the accumulator, so each 16-byte shared-memory load
+// feeds 4 to 8 FMAs. Rows are padded to D + 4 floats, which keeps the
+// 16-byte loads of eight neighbouring rows free of bank conflicts for
+// every D that is a multiple of 8. Tiles are 32 rows, so the DDPM mid
+// block (N = 16) is one masked tile and D = 256 fits in about 140 KB of
+// shared memory (one block per SM). They read the lse that K2 writes.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -201,95 +226,384 @@ __host__ __device__ constexpr int threads_for(int r) {
 
 // ------------------------------------------------------------------ K2
 
-constexpr int FWD_R = 2;
+// Tensor-core parts: 3xTF32 `mma.sync` fragments and the `cp.async` ring.
 
-size_t fwd_smem(int d) {
-  return sizeof(float) * (3 * TILE * row_stride(d) + TILE * SLD);
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
 }
 
-template <int R, int NG>
-__global__ void __launch_bounds__(threads_for(R))
+// x ≈ big + small, both TF32 (about 22 bits of x's 24).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+// m16n8k8 fragments, split for 3xTF32. With g = lane / 4, t = lane % 4:
+// A (16×8, row-major) a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4);
+// B (8×8) b0 (k = t, n = g), b1 (k = t+4, n = g);
+// C (16×8) c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1).
+struct FragA {
+  uint32_t big[4], small[4];
+};
+struct FragB {
+  uint32_t big[2], small[2];
+};
+
+// A from a row-major tile: base at (row 0, col 0), row stride ld.
+__device__ __forceinline__ void load_a(FragA& f, const float* base, int ld,
+                                       int g, int t) {
+  split_tf32(base[g * ld + t], f.big[0], f.small[0]);
+  split_tf32(base[(g + 8) * ld + t], f.big[1], f.small[1]);
+  split_tf32(base[g * ld + t + 4], f.big[2], f.small[2]);
+  split_tf32(base[(g + 8) * ld + t + 4], f.big[3], f.small[3]);
+}
+
+// B = Xᵀ for a row-major X [n][k] (k for s = q·kᵀ).
+__device__ __forceinline__ void load_b_t(FragB& f, const float* base, int ld,
+                                         int g, int t) {
+  split_tf32(base[g * ld + t], f.big[0], f.small[0]);
+  split_tf32(base[g * ld + t + 4], f.big[1], f.small[1]);
+}
+
+// B = X for a row-major X [k][n] (v for o += p·v).
+__device__ __forceinline__ void load_b(FragB& f, const float* base, int ld,
+                                       int g, int t) {
+  split_tf32(base[t * ld + g], f.big[0], f.small[0]);
+  split_tf32(base[(t + 4) * ld + g], f.big[1], f.small[1]);
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a·b in 3xTF32, the small terms first.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const FragA& a,
+                                           const FragB& b) {
+  mma_tf32(c, a.small, b.big);
+  mma_tf32(c, a.big, b.small);
+  mma_tf32(c, a.big, b.big);
+}
+
+// 16 bytes global → shared, asynchronously; zero-filled (nothing read)
+// unless `valid`.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [row0, row0 + rows) × columns [col0, col0 + w) of the row-major
+// [n, d] matrix `src` into `dst` (row stride ld), asynchronously; rows at
+// or past n are zero.
+template <int THREADS>
+__device__ __forceinline__ void copy_rows_async(float* dst, int ld,
+                                                const float* src, int row0,
+                                                int rows, int n, int d,
+                                                int col0, int w) {
+  const int w4 = w / 4;
+  for (int idx = threadIdx.x; idx < rows * w4; idx += THREADS) {
+    const int r = idx / w4;
+    const int c = idx - r * w4;
+    const bool ok = row0 + r < n;
+    const float* from = ok ? src + (int64_t)(row0 + r) * d + col0 + 4 * c
+                           : src;
+    cp_async16(dst + r * ld + 4 * c, from, ok);
+  }
+}
+
+// Shared-memory layout of K2 (in floats), the same on host and device.
+// k passes in chunks of ≤ 64 columns (row stride dc + 4), v in chunks of
+// vr rows (row stride ldv ≡ 8 or 24 mod 32, so that the B loads of v are
+// free of bank conflicts); one ring stage holds either.
+__host__ __device__ constexpr int fwd_dc(int d) { return d < 64 ? d : 64; }
+__host__ __device__ constexpr int fwd_ldv(int d) {
+  return d + (d % 16 == 0 ? 8 : 0);
+}
+__host__ __device__ inline int fwd_vr(int d, int bk) {
+  int vr = bk;
+  while (vr > 8 && vr * fwd_ldv(d) > bk * (fwd_dc(d) + 4)) vr /= 2;
+  return vr;
+}
+__host__ __device__ inline int fwd_stage(int d, int bk) {
+  const int k_chunk = bk * (fwd_dc(d) + 4);
+  const int v_chunk = fwd_vr(d, bk) * fwd_ldv(d);
+  return k_chunk > v_chunk ? k_chunk : v_chunk;
+}
+
+template <int RW, int CW, int BK>
+size_t fwd_smem(int d) {
+  constexpr int BQ = 16 * RW;
+  const int red = CW > 1 ? 2 * RW * CW * 16 : 0;
+  return sizeof(float) *
+         (BQ * row_stride(d) + 2 * fwd_stage(d, BK) + BQ * (BK + 4) + red);
+}
+
+// RW row-warps × CW column-warps; BK keys per tile; NS the most 8-wide
+// output column steps a warp owns (see the note at the top).
+template <int RW, int CW, int BK, int NS>
+__global__ void __launch_bounds__(RW * CW * 32, 2)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int nq, int nk, int d,
                  float scale) {
-  constexpr int THREADS = threads_for(R);
-  constexpr int G = TILE / R;
+  constexpr int THREADS = RW * CW * 32;
+  constexpr int BQ = 16 * RW;
+  constexpr int NJ = BK / 8 / CW;  // 8-wide key steps of a warp's s
+  constexpr int LDP = BK + 4;
+  static_assert(NJ >= 1 && BK % (8 * CW) == 0, "key tile");
+
+  const int ldq = row_stride(d);
+  const int dc = fwd_dc(d);
+  const int ldk = dc + 4;
+  const int ldv = fwd_ldv(d);
+  const int vr = fwd_vr(d, BK);
+  const int stage = fwd_stage(d, BK);
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);
-  float* k_s = q_s + TILE * row_stride(d);
-  float* v_s = k_s + TILE * row_stride(d);
-  float* p_s = v_s + TILE * row_stride(d);
+  float* ring = q_s + BQ * ldq;
+  float* p_s = ring + 2 * stage;
+  float* red_max = p_s + BQ * LDP;  // [RW][CW][16], used when CW > 1
+  float* red_sum = red_max + RW * CW * 16;
 
-  const int n_qt = (nq + TILE - 1) / TILE;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int rw = warp / CW;
+  const int cw = warp % CW;
+
+  const int n_qt = (nq + BQ - 1) / BQ;
   const int b = blockIdx.x / n_qt;
-  const int q0 = (blockIdx.x - b * n_qt) * TILE;
-  const int tx = threadIdx.x % LANES;
-  const int ty = threadIdx.x / LANES;
+  const int q0 = (blockIdx.x - b * n_qt) * BQ;
   q += (int64_t)b * nq * d;
   o += (int64_t)b * nq * d;
   k += (int64_t)b * nk * d;
   v += (int64_t)b * nk * d;
 
-  load_tile<THREADS>(q_s, q, q0, nq, d);
-  float m[R], l[R];
-  float4 acc[R][NG];
-  zero(acc);
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-  }
+  // the ring's sequence of loads: per key tile n_kc k-chunks, then n_vc
+  // v-chunks
+  const int n_kc = (d + dc - 1) / dc;
+  const int n_vc = BK / vr;
+  const int per_tile = n_kc + n_vc;
+  const int n_tiles = (nk + BK - 1) / BK;
+  const int total = n_tiles * per_tile;
 
-  for (int k0 = 0; k0 < nk; k0 += TILE) {
-    __syncthreads();  // the previous tile's k_s, v_s, p_s are read
-    load_tile<THREADS>(k_s, k, k0, nk, d);
-    load_tile<THREADS>(v_s, v, k0, nk, d);
-    __syncthreads();
-    float s[R][4];
-    score_tile<R>(s, q_s, k_s, d, ty, tx);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[r][j] = (k0 + tx + LANES * j < nk) ? s[r][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[r][j]);
-      }
-      // every k-tile holds a valid column, so m_new is finite; on the
-      // first tile m = −inf and alpha = exp(−inf) = 0
-      const float m_new = fmaxf(m[r], row_max(mx));
-      const float alpha = expf(m[r] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[r][j] - m_new);
-        sum += p;
-        p_s[(ty + r * G) * SLD + tx + LANES * j] = p;
-      }
-      l[r] = l[r] * alpha + row_sum(sum);
-      m[r] = m_new;
-#pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        acc[r][g].x *= alpha;
-        acc[r][g].y *= alpha;
-        acc[r][g].z *= alpha;
-        acc[r][g].w *= alpha;
-      }
+  auto issue = [&](int i) {
+    float* dst = ring + (i & 1) * stage;
+    const int tile = i / per_tile;
+    const int r = i - tile * per_tile;
+    if (r < n_kc) {
+      const int c0 = r * dc;
+      copy_rows_async<THREADS>(dst, ldk, k, tile * BK, BK, nk, d, c0,
+                               min(dc, d - c0));
+    } else {
+      copy_rows_async<THREADS>(dst, ldv, v, tile * BK + (r - n_kc) * vr, vr,
+                               nk, d, 0, d);
+    }
+    cp_async_commit();
+  };
+  int next = 0;  // the load the block works on
+  // waits for load `next`, with load next + 1 put in flight first
+  auto acquire = [&]() -> const float* {
+    if (next + 1 < total) {
+      issue(next + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    accum_tile<R, NG>(acc, p_s, v_s, d, ty, tx);
+    return ring + (next & 1) * stage;
+  };
+  // every warp is done with load `next`: its stage may be refilled
+  auto release = [&]() {
+    __syncthreads();
+    ++next;
+  };
+
+  copy_rows_async<THREADS>(q_s, ldq, q, q0, BQ, nq, d, 0, d);
+  issue(0);  // one group with the q tile
+
+  // the warp's 8-wide output column steps: [j0, j0 + ns)
+  const int steps = d / 8;
+  const int per_warp = (steps + CW - 1) / CW;
+  const int j0 = cw * per_warp;
+  const int ns = max(0, min(per_warp, steps - j0));
+  const int key0 = cw * NJ * 8;  // the warp's first key column of a tile
+  const float* q_w = q_s + rw * 16 * ldq;
+  float* p_w = p_s + rw * 16 * LDP;
+
+  float acc[NS][4];
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  }
+  float m[2] = {-INFINITY, -INFINITY};  // rows g and g + 8
+  float l[2] = {0.f, 0.f};
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int k0 = tile * BK;
+    float s[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    }
+    for (int kc = 0; kc < n_kc; ++kc) {
+      const float* k_s = acquire();
+      const int c0 = kc * dc;
+      const int w = min(dc, d - c0);
+      for (int kk = 0; kk < w; kk += 8) {
+        FragA a;
+        load_a(a, q_w + c0 + kk, ldq, g, t);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          FragB bf;
+          load_b_t(bf, k_s + (key0 + 8 * j) * ldk + kk, ldk, g, t);
+          mma_3xtf32(s[j], a, bf);
+        }
+      }
+      release();
+    }
+
+    // online softmax of the tile: scale, mask, row max over all CW warps
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + key0 + 8 * j + 2 * t + (e & 1);
+        s[j][e] = col < nk ? s[j][e] * scale : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    }
+    if constexpr (CW > 1) {
+      float* mine = red_max + (rw * CW + cw) * 16;
+      if (t == 0) {
+        mine[g] = mx[0];
+        mine[g + 8] = mx[1];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = -INFINITY;
+#pragma unroll
+        for (int c = 0; c < CW; ++c) {
+          mx[h] = fmaxf(mx[h], red_max[(rw * CW + c) * 16 + g + 8 * h]);
+        }
+      }
+    }
+    // every key tile holds a valid column, so the new max is finite
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m[h], mx[h]);
+      alpha[h] = expf(m[h] - m_new);
+      m[h] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float p0 = expf(s[j][2 * h] - m[h]);
+        const float p1 = expf(s[j][2 * h + 1] - m[h]);
+        sum[h] += p0 + p1;
+        *reinterpret_cast<float2*>(p_w + (g + 8 * h) * LDP + key0 + 8 * j +
+                                   2 * t) = make_float2(p0, p1);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+    }
+    if constexpr (CW > 1) {
+      if (t == 0) {
+        red_sum[(rw * CW + cw) * 16 + g] = sum[0];
+        red_sum[(rw * CW + cw) * 16 + g + 8] = sum[1];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+
+    // o += p·v over the tile's v-chunks; the first acquire's barrier also
+    // publishes p and the row sums
+    for (int vc = 0; vc < n_vc; ++vc) {
+      const float* v_s = acquire();
+      if (vc == 0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float tot = sum[h];
+          if constexpr (CW > 1) {
+            tot = 0.f;
+#pragma unroll
+            for (int c = 0; c < CW; ++c) {
+              tot += red_sum[(rw * CW + c) * 16 + g + 8 * h];
+            }
+          }
+          l[h] = l[h] * alpha[h] + tot;
+        }
+      }
+      for (int kk = 0; kk < vr; kk += 8) {
+        FragA a;
+        load_a(a, p_w + vc * vr + kk, LDP, g, t);
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          if (j < ns) {
+            FragB bf;
+            load_b(bf, v_s + kk * ldv + 8 * (j0 + j), ldv, g, t);
+            mma_3xtf32(acc[j], a, bf);
+          }
+        }
+      }
+      release();
+    }
   }
 
-  float inv[R];
 #pragma unroll
-  for (int r = 0; r < R; ++r) inv[r] = 1.f / l[r];
-  store_rows<R, NG>(o, acc, inv, q0, nq, d, ty, tx);
-  if (lse != nullptr && tx == 0) {
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + rw * 16 + g + 8 * h;
+    if (row >= nq) continue;
+    const float inv = 1.f / l[h];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int row = q0 + ty + r * G;
-      if (row < nq) lse[(int64_t)b * nq + row] = m[r] + logf(l[r]);
+    for (int j = 0; j < NS; ++j) {
+      if (j < ns) {
+        *reinterpret_cast<float2*>(o + (int64_t)row * d + 8 * (j0 + j) +
+                                   2 * t) =
+            make_float2(acc[j][2 * h] * inv, acc[j][2 * h + 1] * inv);
+      }
+    }
+    if (lse != nullptr && cw == 0 && t == 0) {
+      lse[(int64_t)b * nq + row] = m[h] + logf(l[h]);
     }
   }
 }
@@ -485,14 +799,14 @@ int launch(Kernel kernel, int threads, int64_t blocks, size_t smem,
   return (int)cudaGetLastError();
 }
 
-// Two rows per thread up to D = 256, one above (see the note at the top).
-template <int NG>
-int fwd_ng(const float* q, const float* k, const float* v, float* o,
-           float* lse, int batch, int nq, int nk, int d, float scale,
-           void* stream) {
-  constexpr int R = NG <= 8 ? FWD_R : 1;
-  return launch(flash_fwd_kernel<R, NG>, threads_for(R), grid_for(batch, nq),
-                fwd_smem(d), stream, q, k, v, o, lse, nq, nk, d, scale);
+template <int RW, int CW, int BK, int NS>
+int fwd_launch(const float* q, const float* k, const float* v, float* o,
+               float* lse, int batch, int nq, int nk, int d, float scale,
+               void* stream) {
+  const int64_t blocks = (int64_t)batch * ((nq + 16 * RW - 1) / (16 * RW));
+  return launch(flash_fwd_kernel<RW, CW, BK, NS>, RW * CW * 32, blocks,
+                fwd_smem<RW, CW, BK>(d), stream, q, k, v, o, lse, nq, nk, d,
+                scale);
 }
 
 template <int NG>
@@ -528,20 +842,6 @@ int dkv_ng(const float* q, const float* k, const float* v, const float* dout,
     default: return (int)cudaErrorInvalidValue; \
   }
 
-// The same for K2 up to D = 512.
-#define SALUN_DISPATCH_NG_FWD(d, FN, ...)    \
-  switch (((d) + 31) / 32) {                 \
-    case 9: return FN<9>(__VA_ARGS__);       \
-    case 10: return FN<10>(__VA_ARGS__);     \
-    case 11: return FN<11>(__VA_ARGS__);     \
-    case 12: return FN<12>(__VA_ARGS__);     \
-    case 13: return FN<13>(__VA_ARGS__);     \
-    case 14: return FN<14>(__VA_ARGS__);     \
-    case 15: return FN<15>(__VA_ARGS__);     \
-    case 16: return FN<16>(__VA_ARGS__);     \
-    default: SALUN_DISPATCH_NG(d, FN, __VA_ARGS__) \
-  }
-
 }  // namespace
 
 // Plain C entry points (bound with ctypes). Each launches on `stream`,
@@ -555,11 +855,26 @@ extern "C" int salun_flash_fwd(const void* q, const void* k, const void* v,
   if (!shape_ok(batch, nq, nk, d, MAX_D_FWD)) {
     return (int)cudaErrorInvalidValue;
   }
-  SALUN_DISPATCH_NG_FWD(d, fwd_ng, static_cast<const float*>(q),
-                    static_cast<const float*>(k),
-                    static_cast<const float*>(v), static_cast<float*>(o),
-                    static_cast<float*>(lse), batch, nq, nk, d, scale,
-                    stream)
+  const float* qp = static_cast<const float*>(q);
+  const float* kp = static_cast<const float*>(k);
+  const float* vp = static_cast<const float*>(v);
+  float* op = static_cast<float*>(o);
+  float* lp = static_cast<float*>(lse);
+  // row-warps, column-warps, keys per tile, most column steps per warp
+  if (d <= 64) {
+    return fwd_launch<4, 1, 64, 8>(qp, kp, vp, op, lp, batch, nq, nk, d,
+                                   scale, stream);
+  }
+  if (d <= 128) {
+    return fwd_launch<4, 1, 64, 16>(qp, kp, vp, op, lp, batch, nq, nk, d,
+                                    scale, stream);
+  }
+  if (d <= 256) {
+    return fwd_launch<4, 2, 32, 16>(qp, kp, vp, op, lp, batch, nq, nk, d,
+                                    scale, stream);
+  }
+  return fwd_launch<2, 4, 64, 16>(qp, kp, vp, op, lp, batch, nq, nk, d,
+                                  scale, stream);
 }
 
 // K3a: dq [B, Nq, D] from q, k, v, do, lse [B, Nq] and delta [B, Nq].

@@ -6,12 +6,15 @@ fixture, never at import. Imports neither ``jax`` nor ``salun``: on the
 card's machine run ``python -m pytest tests/test_torch_attention_cuda.py
 -m cuda --noconftest -p no:cacheprovider``.
 
-Tolerance: both sides compute in fp32 (TF32 off), but sum in other orders
-(the kernels: sequential FMAs over D and over 32-wide tiles with an online
-softmax; the plain versions: cuBLAS SGEMM over materialised scores), so
-they differ by fp32 rounding of sums of up to N·D terms: about 1e-6 of the
-largest value here. The bound ``1e-4 · max(1, max|want|)`` leaves 100×
-room and still fails TF32 (~5e-4 relative) or any indexing fault (O(1)).
+Tolerance: both sides compute to about fp32 precision (TF32 off for the
+plain versions), but sum in other orders. K2 multiplies on the tensor
+cores in 3xTF32 (each operand split into two TF32 parts, three products
+summed in fp32: about 22 of fp32's 24 bits) over 64-wide key tiles with an
+online softmax; K3a/K3b use sequential fp32 FMAs over 32-wide tiles; the
+plain versions cuBLAS SGEMM over materialised scores. They differ by about
+1e-6 of the largest value here. The bound ``1e-4 · max(1, max|want|)``
+leaves 100× room and still fails plain TF32 (~5e-4 relative) or any
+indexing fault (O(1)); the K2 width test also holds 3xTF32 to 2e-5.
 """
 
 import pytest
@@ -41,9 +44,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _close(got, want):
+def _close(got, want, tol=1e-4):
     err = float((got - want).abs().max())
-    assert err <= 1e-4 * max(1.0, float(want.abs().max())), err
+    assert err <= tol * max(1.0, float(want.abs().max())), err
 
 
 def _inputs(dev, b, nq, nk, d, seed=0):
@@ -92,8 +95,8 @@ def test_kernels_match_plain_on_card(cuda, shape):
                                    (2, 33, 77, 264), (1, 1, 5, 512)],
                          ids=str)
 def test_k2_wide_heads_match_plain_on_card(cuda, shape):
-    """K2 above D = 256 (one row per thread): the SD VAE mid block's
-    [4, 4096, 4096, 512] and ragged shapes."""
+    """K2 above D = 256 (32 query rows a block, four column-warps): the SD
+    VAE mid block's [4, 4096, 4096, 512] and ragged shapes."""
     b, nq, nk, d = shape
     q, k, v, _ = _inputs(cuda, b, nq, nk, d)
     scale = d ** -0.5
@@ -104,6 +107,42 @@ def test_k2_wide_heads_match_plain_on_card(cuda, shape):
     assert fa.flash_attention_fwd.launches == before + 1
     _close(o, want_o)
     _close(lse, want_lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (2, 33, 77, 8), (2, 33, 77, 40), (2, 33, 77, 64), (2, 33, 77, 80),
+    (2, 33, 77, 160), (2, 33, 77, 256), (2, 33, 77, 264), (2, 33, 77, 512),
+    (2, 100, 77, 40),  # SD cross-attention
+    (3, 16, 130, 80), (1, 1, 200, 256), (2, 130, 1, 512),
+], ids=str)
+def test_k2_every_width_matches_plain_on_card(cuda, shape):
+    """K2 at every head width the port runs (one instantiation per range:
+    D ≤ 64, ≤ 128, ≤ 256, ≤ 512), with ragged Nq ≠ Nk: within 1e-4 and,
+    as 3xTF32 keeps about 1e-6, within 2e-5 of the largest value."""
+    b, nq, nk, d = shape
+    q, k, v, _ = _inputs(cuda, b, nq, nk, d, seed=3)
+    scale = d ** -0.5
+    o, lse = fa.flash_attention_fwd(q, k, v, scale, need_lse=True)
+    want_o, want_lse = fa.flash_attention_fwd_reference(q, k, v, scale)
+    torch.cuda.synchronize()
+    for got, want in ((o, want_o), (lse, want_lse)):
+        _close(got, want)
+        _close(got, want, tol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(128, 256, 256, 256), (32, 1024, 77, 80),
+                                   (2, 300, 300, 512)], ids=str)
+def test_k2_is_bitwise_deterministic_on_card(cuda, shape):
+    """No atomics, a fixed summation order: two launches on the same inputs
+    give the same o and lse, bit for bit."""
+    b, nq, nk, d = shape
+    q, k, v, _ = _inputs(cuda, b, nq, nk, d, seed=4)
+    first = fa.flash_attention_fwd(q, k, v, d ** -0.5, need_lse=True)
+    second = fa.flash_attention_fwd(q, k, v, d ** -0.5, need_lse=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
 @pytest.mark.cuda
