@@ -20,10 +20,12 @@ Phases, each of which fails the script (exit code 1) when it fails:
    77, Nq ≠ Nk, D = 40, 64, 160, 8): max abs and relative error, failing
    above 1e-4·max(1, max|plain|); K2 launched twice at [128, 256, 256,
    256], [32, 1024, 1024, 80] and [4, 4096, 4096, 512] gives bitwise equal
-   o and lse. Times with CUDA events, the bound (K2's operations at the
-   3xTF32 tensor-core roof, 495/3 TFLOP/s, with the fp32 CUDA-core bound
-   beside it; K3a/K3b at the CUDA cores' 67 TFLOP/s), the
-   plain version's time and, for K2/K3, the time of
+   o and lse, K3b launched twice at [128, 256, 256, 256], [32, 4096, 4096,
+   40] and [32, 4096, 77, 40] (a split query walk) bitwise equal dk and
+   dv; K3b's split count is logged at every shape. Times with CUDA events,
+   the bound (K2's and K3b's operations at the 3xTF32 tensor-core roof,
+   495/3 TFLOP/s, with the fp32 CUDA-core bound beside it; K3a at the CUDA
+   cores' 67 TFLOP/s), the plain version's time and, for K2/K3, the time of
    ``torch.nn.functional.scaled_dot_product_attention`` (forward; backward
    through autograd) on the same tensors, as a yardstick only. K4 and K4b
    (fused GroupNorm + SiLU forward and backward) against their plain
@@ -116,6 +118,9 @@ ATTN_TOL = 1e-4  # × max(1, max|plain|): fp32 sums in other orders
 # K2 launched twice must give the same o and lse, bitwise (no atomics)
 K2_BITWISE = [(128, 256, 256, 256), (32, 1024, 1024, 80),
               (4, 4096, 4096, 512)]
+# K3b the same for dk and dv; [32, 4096, 77, 40] takes the split walk
+K3B_BITWISE = [(128, 256, 256, 256), (32, 4096, 4096, 40),
+               (32, 4096, 77, 40)]
 
 # DDPM chain: the reference config, cut in count and steps
 DDPM_CONFIG = ROOT / "configs" / "ddpm" / "cifar10_saliency_unlearn.yml"
@@ -292,11 +297,11 @@ def _attn_work(name: str, b: int, nq: int, nk: int, d: int):
 
 def _attn_bound(name: str, shape):
     """(bytes, operations, bound ms, bound_by, roof, CUDA-core bound ms):
-    K2 multiplies on the tensor cores in 3xTF32, K3a/K3b on the CUDA
+    K2 and K3b multiply on the tensor cores in 3xTF32, K3a on the CUDA
     cores in fp32."""
     n_bytes, n_ops = _attn_work(name, *shape)
     fp32_ms, fp32_by = _bound(n_bytes, n_ops)
-    if name != "K2":
+    if name == "K3a":
         return n_bytes, n_ops, fp32_ms, fp32_by, "fp32 CUDA cores", fp32_ms
     bound_ms, bound_by = _bound(n_bytes, n_ops, TF32X3_FLOPS)
     return n_bytes, n_ops, bound_ms, bound_by, "3xTF32 tensor cores", fp32_ms
@@ -311,6 +316,27 @@ def _k2_bitwise(fa, q, k, v, scale, first, shape) -> None:
     if not all(torch.equal(x, y) for x, y in zip(first, again)):
         fail(f"K2 is not bitwise deterministic at {list(shape)}")
     log(f"K2 {list(shape)}: two launches give bitwise equal o and lse")
+
+
+def _k3b_split(fa, device, shape) -> str:
+    """K3b's split plan at ``shape`` on this card, for the log."""
+    b, nq, nk, d = shape
+    resident = fa.dkv_resident_blocks(device, d)
+    splits, rows = fa.dkv_split_plan(b, nq, nk, d, resident)
+    return (f"K3b {list(shape)}: S = {splits} split(s) of the query walk "
+            f"({rows} rows each; {resident} resident blocks on the card)")
+
+
+def _k3b_bitwise(fa, bwd, first, shape) -> None:
+    """K3b launched again on the same inputs gives ``first`` bit for bit
+    (the split walk's partials are summed in a fixed order)."""
+    import torch
+
+    again = fa.flash_attention_bwd_dkv(*bwd)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(first, again)):
+        fail(f"K3b is not bitwise deterministic at {list(shape)}")
+    log(f"K3b {list(shape)}: two launches give bitwise equal dk and dv")
 
 
 def attention_vs_plain(device):
@@ -356,6 +382,9 @@ def attention_vs_plain(device):
                          f"{list(shape)}: max abs err {err}")
         if shape in K2_BITWISE:
             _k2_bitwise(fa, q, k, v, scale, k2_out, shape)
+        log(_k3b_split(fa, device, shape))
+        if shape in K3B_BITWISE:
+            _k3b_bitwise(fa, bwd, pairs["K3b"][0], shape)
         if shape not in ATTN_PATH:
             continue
         ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
@@ -558,6 +587,10 @@ def sd_attention_vs_plain(device):
                     f"to max|plain| {err / max(ref, 1e-30):.3e}")
         if shape in K2_BITWISE:
             _k2_bitwise(fa, q, k, v, scale, k2_out, shape)
+        if d <= fa.MAX_D_BWD:
+            log(_k3b_split(fa, device, shape))
+        if shape in K3B_BITWISE:
+            _k3b_bitwise(fa, bwd, pairs["K3b"][0], shape)
         del pairs, want_o, k2_out
         lib = {}
         for name, (kernel, plain, library) in runs.items():
@@ -839,9 +872,9 @@ def ddpm_path(device, attn_ms: dict) -> dict:
     # at N = 16) and 2 backwards per step
     big, mid = ATTN_PATH[0], ATTN_PATH[2]
     big_n, mid_n = sites - 1, 1
-    fwd = big_n * attn_ms[("K2", big)] + mid_n * attn_ms[("K2", mid)]
-    bwd = sum(big_n * attn_ms[(k, big)] + mid_n * attn_ms[(k, mid)]
-              for k in ("K3a", "K3b"))
+    fwd, k3a, k3b = (big_n * attn_ms[(k, big)] + mid_n * attn_ms[(k, mid)]
+                     for k in ("K2", "K3a", "K3b"))
+    bwd = k3a + k3b
     step_ms = result["ms_per_step"]
     log(f"DDPM seconds: mask generation {t_mask:.3f} (whole CLI call), "
         f"unlearning {step_ms:.3f} ms/step over steps 2-{DDPM_ITERS} "
@@ -851,7 +884,9 @@ def ddpm_path(device, attn_ms: dict) -> dict:
         f"{DDPM_STEPS} steps)")
     log(f"unlearning step: K2 {3 * fwd:.3f} ms + K3a/K3b {2 * bwd:.3f} ms "
         f"= {3 * fwd + 2 * bwd:.3f} ms of {step_ms:.3f} ms "
-        f"({100 * (3 * fwd + 2 * bwd) / step_ms:.1f}%) at the phase-3 times")
+        f"({100 * (3 * fwd + 2 * bwd) / step_ms:.1f}%) at the phase-3 times; "
+        f"K3a {2 * k3a:.3f} ms, K3b {2 * k3b:.3f} ms "
+        f"({100 * 2 * k3b / step_ms:.1f}%)")
     return launches
 
 
@@ -915,11 +950,11 @@ def write_imagenette_folder(root: Path) -> None:
 
 
 def sd_step_attention_ms(cfg, rows) -> tuple:
-    """(K2, K3a + K3b) ms of one random_label step from the phase-3
-    times at its shapes: three VAE encodes (one K2 each), three U-Net
-    forwards plus the remat recompute of two (each attention site one K2)
-    and two backwards (K3a and K3b per site); then the K2 ms of one U-Net
-    forward and of one VAE attention at bs 4."""
+    """(K2, K3a, K3b) ms of one random_label step from the phase-3 times
+    at its shapes: three VAE encodes (one K2 each), three U-Net forwards
+    plus the remat recompute of two (each attention site one K2) and two
+    backwards (K3a and K3b per site); then the K2 ms of one U-Net forward
+    and of one VAE attention at bs 4."""
     t = {(r["name"], tuple(r["shape"])): r["ms"] for r in rows}
     u = cfg.unet
     side = SD_IMAGE // 8
@@ -928,18 +963,18 @@ def sd_step_attention_ms(cfg, rows) -> tuple:
         if 2 ** level in u.attention_resolutions:
             sites += [(level, mult)] * (2 * u.num_res_blocks + 1)
     sites.append((len(u.channel_mult) - 1, u.channel_mult[-1]))  # middle
-    fwd = bwd = 0.0
+    fwd = k3a = k3b = 0.0
     for level, mult in sites:
         n = (side >> level) ** 2
         d = mult * u.model_channels // u.num_heads
         for nk in (n, cfg.clip.max_length):  # attn1, attn2
             shape = (SD_BS * u.num_heads, n, nk, d)
             fwd += u.transformer_depth * t[("K2", shape)]
-            bwd += u.transformer_depth * (t[("K3a", shape)]
-                                          + t[("K3b", shape)])
+            k3a += u.transformer_depth * t[("K3a", shape)]
+            k3b += u.transformer_depth * t[("K3b", shape)]
     vae = t[("K2", (SD_BS, side * side, side * side, 512))]
     n_fwd = 3 + (2 if u.remat else 0)
-    return 3 * vae + n_fwd * fwd, 2 * bwd, fwd, vae
+    return 3 * vae + n_fwd * fwd, 2 * k3a, 2 * k3b, fwd, vae
 
 
 def sd_path(device, attn_rows) -> dict:
@@ -1123,10 +1158,14 @@ def sd_path(device, attn_rows) -> dict:
         f"{result['seconds']['first_step']:.3f} s), sampling "
         f"{stats['seconds']:.3f} s ({stats['images']} images, {n_ddim} "
         f"steps)")
-    k2_ms, k3_ms, fwd_ms, vae_ms = sd_step_attention_ms(cfg, attn_rows)
+    k2_ms, k3a_ms, k3b_ms, fwd_ms, vae_ms = sd_step_attention_ms(cfg,
+                                                                 attn_rows)
+    k3_ms = k3a_ms + k3b_ms
     log(f"random_label step: K2 {k2_ms:.3f} ms + K3a/K3b {k3_ms:.3f} ms = "
         f"{k2_ms + k3_ms:.3f} ms of {step_ms:.3f} ms "
-        f"({100 * (k2_ms + k3_ms) / step_ms:.1f}%) at the phase-3 times")
+        f"({100 * (k2_ms + k3_ms) / step_ms:.1f}%) at the phase-3 times; "
+        f"K3a {k3a_ms:.3f} ms, K3b {k3b_ms:.3f} ms "
+        f"({100 * k3b_ms / step_ms:.1f}%)")
     # a sampling row: one CFG-doubled U-Net forward (bs 2 x 2 = 4, the
     # step's shapes) per DDIM step, then a decode of SD_SAMPLES latents
     # (its K2 at SD_SAMPLES / SD_BS of the bs-4 time)

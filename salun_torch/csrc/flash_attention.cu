@@ -9,7 +9,8 @@
 //   K3a _bwd_dq_kernel:  p = exp(s − lse), dp = do·vᵀ, ds = p∘(dp − δ),
 //       dq = scale · ds·k, accumulated over k-tiles.
 //   K3b _bwd_dkv_kernel: dv = pᵀ·do, dk = scale · dsᵀ·q, accumulated over
-//       q-tiles (one block per k-tile, so dk/dv need no atomics).
+//       q-tiles (one block per k-tile and split of the q walk; the splits'
+//       partials are summed in a fixed order, so dk/dv need no atomics).
 // δ = Σ_d do∘o is computed outside the kernels, as in JAX.
 //
 // Layout: single head, q [B, Nq, D], k/v [B, Nk, D], fp32, contiguous,
@@ -57,20 +58,62 @@
 //
 // K3a and K3b: bound operations too (6·B·Nq·Nk·D and 8·B·Nq·Nk·D flop on
 // about as many bytes as K2, 64 to 128 flop per byte at the DDPM shape).
-// They compute in plain fp32 FFMA on the CUDA cores (roof 67 TFLOP/s), so
-// that they agree with their plain PyTorch versions to fp32 rounding.
-// Every product is a 32×32 tile read from shared memory, where each thread
-// keeps a 2×4 (K3a) or 1×4 (K3b) register tile of scores and 2 (or 1) rows
-// × D/8 columns of the accumulator, so each 16-byte shared-memory load
-// feeds 4 to 8 FMAs. Rows are padded to D + 4 floats, which keeps the
-// 16-byte loads of eight neighbouring rows free of bank conflicts for
-// every D that is a multiple of 8. Tiles are 32 rows, so the DDPM mid
-// block (N = 16) is one masked tile and D = 256 fits in about 140 KB of
-// shared memory (one block per SM). They read the lse that K2 writes.
+// They read the lse that K2 writes.
+//
+// K3a computes in plain fp32 FFMA on the CUDA cores (roof 67 TFLOP/s):
+// every product is a 32×32 tile read from shared memory, where each thread
+// keeps a 2×4 register tile of scores and 2 rows × D/8 columns of the
+// accumulator, so each 16-byte shared-memory load feeds up to 8 FMAs.
+// Rows are padded to D + 4 floats, which keeps the 16-byte loads of eight
+// neighbouring rows free of bank conflicts for every D that is a multiple
+// of 8. Tiles are 32 rows, so the DDPM mid block (N = 16) is one masked
+// tile.
+//
+// K3b (`salun_flash_bwd_dkv`) replaces salun/kernels/flash_attention.py:188
+// `_bwd_dkv_kernel` (called at :305 from `_fa_bwd_rule` :253). It is K2's
+// loop with the roles of q and k swapped and no online softmax, since lse
+// is given; its bound is the 3xTF32 roof, as K2's. Its design:
+// - A block owns BK = 16·RW keys (RW row-warps of the MMA's 16 rows) and
+//   keeps k and v resident in shared memory for its whole walk over the
+//   query tiles. q, do, lse and δ of BQ queries a tile arrive through a
+//   two-stage ring of `cp.async` copies (16-byte `.cg`; 4-byte `.ca` for
+//   lse and δ, whose rows need not be 16-byte aligned), zero-filled past
+//   Nq; the next tile is in flight while the current one is multiplied.
+//   Two barriers a tile (one when CW = 1).
+// - Phase 1: sᵀ = k·qᵀ and dpᵀ = v·doᵀ in 3xTF32 `mma.sync` (k and v the
+//   A operand, qᵀ and doᵀ the B operand), then p = exp(sᵀ·scale − lse),
+//   masked to 0 by column index past the walk's end, and ds = p∘(dpᵀ − δ).
+//   With CW = 1 a warp computes both for all the tile's queries, in
+//   registers. With CW > 1, half the column-warps of a row-warp compute sᵀ
+//   and write p, the other half dpᵀ and write dpᵀ − δ, each over a share
+//   of the query columns, so a warp loads and splits one resident A
+//   fragment a step, not two; pᵀ and (dpᵀ − δ) go through shared memory.
+// - Phase 2: dv += pᵀ·do and dk += dsᵀ·q, the B operand do or q read
+//   row-major. Its k slots (queries) are taken in the order 2t, 2t + 1
+//   (see `load_b_pairs`), so with CW = 1 the A operand is phase 1's C
+//   fragment, still in the warp's registers; with CW > 1 it is read from
+//   shared memory, ds formed as it is read. Each column-warp owns
+//   ⌈D/8/CW⌉ 8-wide column steps of both accumulators, 2·16·D/(32·CW) ≤ 64
+//   floats a thread.
+// - The instantiations trade registers for resident warps, which hide the
+//   MMA and load latencies: BK = 64 keys, BQ = 32 queries and CW = 1 with
+//   4 blocks an SM up to D = 40 (SD's level 0), 3 up to 64; CW = 2 and 2
+//   blocks up to 128; BK = BQ = 32, CW = 4 and one block up to 256, whose
+//   k, v and ring fill 210 KB of shared memory at D = 256.
+// - Every fragment read is free of bank conflicts with rows of d + 4
+//   floats (a stride of 4·odd), pᵀ and dsᵀ rows of BQ + 8.
+// - Where B·⌈Nk/BK⌉ blocks would leave SMs idle (SD cross-attention, Nk =
+//   77), the host cuts each block's query walk into contiguous splits, one
+//   block each; the splits write unscaled partials to a workspace and a
+//   second kernel sums them in a fixed order and applies dk's scale.
+// - No atomics, fixed summation order: dk and dv are the same, bitwise,
+//   from run to run. dk·scale is applied once, at the end.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -685,15 +728,86 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // ------------------------------------------------------------------ K3b
 
-constexpr int DKV_R = 1;  // two accumulators: one row per thread
+// Phase 2 multiplies over a tile's queries, the MMA's k dimension. Its k
+// slots t and t + 4 of each 8-query step are given the queries 2t and
+// 2t + 1, an order the sum does not see. Then the A fragment a0…a3 is the
+// C fragment c0, c2, c1, c3 of phase 1's sᵀ (the same thread holds it),
+// and both B reads of a q or do tile with rows of d + 4 floats, Xᵀ in
+// phase 1 (`load_b_t`) and X here, are free of bank conflicts.
 
-size_t dkv_smem(int d) {
-  return sizeof(float) * (4 * TILE * row_stride(d) + 2 * TILE * SLD +
-                          2 * TILE);
+// A fragments of p and of p∘x from the row-major tiles p and x in that
+// order: (g, 2t), (g+8, 2t), (g, 2t+1), (g+8, 2t+1), as 8-byte loads.
+__device__ __forceinline__ void load_a_pairs(FragA& fp, FragA& fpx,
+                                             const float* p, const float* x,
+                                             int ld, int g, int t) {
+  const float2 p_lo = *reinterpret_cast<const float2*>(p + g * ld + 2 * t);
+  const float2 p_hi =
+      *reinterpret_cast<const float2*>(p + (g + 8) * ld + 2 * t);
+  const float2 x_lo = *reinterpret_cast<const float2*>(x + g * ld + 2 * t);
+  const float2 x_hi =
+      *reinterpret_cast<const float2*>(x + (g + 8) * ld + 2 * t);
+  split_tf32(p_lo.x, fp.big[0], fp.small[0]);
+  split_tf32(p_hi.x, fp.big[1], fp.small[1]);
+  split_tf32(p_lo.y, fp.big[2], fp.small[2]);
+  split_tf32(p_hi.y, fp.big[3], fp.small[3]);
+  split_tf32(p_lo.x * x_lo.x, fpx.big[0], fpx.small[0]);
+  split_tf32(p_hi.x * x_hi.x, fpx.big[1], fpx.small[1]);
+  split_tf32(p_lo.y * x_lo.y, fpx.big[2], fpx.small[2]);
+  split_tf32(p_hi.y * x_hi.y, fpx.big[3], fpx.small[3]);
 }
 
-template <int R, int NG>
-__global__ void __launch_bounds__(threads_for(R))
+// A from a C fragment c of the same 16 × 8 tile.
+__device__ __forceinline__ void frag_a_from_c(FragA& f, const float (&c)[4]) {
+  split_tf32(c[0], f.big[0], f.small[0]);
+  split_tf32(c[2], f.big[1], f.small[1]);
+  split_tf32(c[1], f.big[2], f.small[2]);
+  split_tf32(c[3], f.big[3], f.small[3]);
+}
+
+// B = X for a row-major X [k][n] in that order: rows k0 + 2t and
+// k0 + 2t + 1, column n0 + g.
+__device__ __forceinline__ void load_b_pairs(FragB& f, const float* x,
+                                             int ld, int k0, int n0, int g,
+                                             int t) {
+  split_tf32(x[(k0 + 2 * t) * ld + n0 + g], f.big[0], f.small[0]);
+  split_tf32(x[(k0 + 2 * t + 1) * ld + n0 + g], f.big[1], f.small[1]);
+}
+
+// 4 bytes global → shared, asynchronously (through L1: `.cg` takes only
+// 16); zero-filled (nothing read) unless `valid`.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// Shared-memory layout of K3b (in floats), the same on host and device:
+// k and v resident (BK rows), a two-stage ring of {q, do (BQ rows), lse,
+// δ (BQ each)}, rows of d + 4 floats; with CW > 1, pᵀ and dsᵀ
+// [BK][BQ + 8] (a stride ≡ 8 mod 32: the 8-byte stores and loads of a
+// half-warp fall on distinct banks).
+template <int BQ>
+__host__ __device__ constexpr int dkv_stage(int d) {
+  return 2 * BQ * row_stride(d) + 2 * BQ;
+}
+
+template <int RW, int CW, int BQ>
+__host__ __device__ constexpr size_t dkv_smem(int d) {
+  return sizeof(float) * (2 * 16 * RW * row_stride(d) +
+                          2 * dkv_stage<BQ>(d) +
+                          (CW > 1 ? 2 * 16 * RW * (BQ + 8) : 0));
+}
+
+// RW row-warps × CW column-warps; BQ queries per tile; NS the most 8-wide
+// output column steps a warp owns; MINB the blocks per SM the registers
+// must allow (see the note at the top). Block (blockIdx.x = b · ⌈nk/BK⌉ +
+// k-tile, blockIdx.y = split) walks the query rows [split ·
+// rows_per_split, + rows_per_split) and writes its dk (times dk_mul) and
+// dv to dk, dv + split · split_stride.
+template <int RW, int CW, int BQ, int NS, int MINB>
+__global__ void __launch_bounds__(RW * CW * 32, MINB)
 flash_bwd_dkv_kernel(const float* __restrict__ q,
                      const float* __restrict__ k,
                      const float* __restrict__ v,
@@ -701,77 +815,261 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
                      float* __restrict__ dk, float* __restrict__ dv, int nq,
-                     int nk, int d, float scale) {
-  constexpr int THREADS = threads_for(R);
-  constexpr int G = TILE / R;
+                     int nk, int d, int rows_per_split, int64_t split_stride,
+                     float dk_mul, float scale) {
+  constexpr int THREADS = RW * CW * 32;
+  constexpr int BK = 16 * RW;
+  constexpr int NJ = BQ / 8;  // 8-wide query steps of a tile
+  constexpr int LDP = BQ + 8;
+  static_assert(BQ % 8 == 0 && (CW == 1 || (CW % 2 == 0 &&
+                                            NJ % (CW / 2) == 0)),
+                "query tile");
+
+  const int ld = row_stride(d);
+  const int stage = dkv_stage<BQ>(d);
   extern __shared__ float4 smem4[];
   float* k_s = reinterpret_cast<float*>(smem4);
-  float* v_s = k_s + TILE * row_stride(d);
-  float* q_s = v_s + TILE * row_stride(d);
-  float* do_s = q_s + TILE * row_stride(d);
-  float* p_s = do_s + TILE * row_stride(d);
-  float* ds_s = p_s + TILE * SLD;
-  float* lse_s = ds_s + TILE * SLD;
-  float* dl_s = lse_s + TILE;
+  float* v_s = k_s + BK * ld;
+  float* ring = v_s + BK * ld;
+  float* p_s = ring + 2 * stage;  // CW > 1 only
+  float* ds_s = p_s + BK * LDP;
 
-  const int n_kt = (nk + TILE - 1) / TILE;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int rw = warp / CW;
+  const int cw = warp % CW;
+
+  const int n_kt = (nk + BK - 1) / BK;
   const int b = blockIdx.x / n_kt;
-  const int k0 = (blockIdx.x - b * n_kt) * TILE;
-  const int tx = threadIdx.x % LANES;
-  const int ty = threadIdx.x / LANES;
+  const int k0 = (blockIdx.x - b * n_kt) * BK;
+  const int q_begin = blockIdx.y * rows_per_split;
+  const int q_end = min(nq, q_begin + rows_per_split);
+  const int n_tiles = q_end > q_begin ? (q_end - q_begin + BQ - 1) / BQ : 0;
   q += (int64_t)b * nq * d;
   dout += (int64_t)b * nq * d;
   lse += (int64_t)b * nq;
   delta += (int64_t)b * nq;
   k += (int64_t)b * nk * d;
   v += (int64_t)b * nk * d;
-  dk += (int64_t)b * nk * d;
-  dv += (int64_t)b * nk * d;
+  dk += blockIdx.y * split_stride + (int64_t)b * nk * d;
+  dv += blockIdx.y * split_stride + (int64_t)b * nk * d;
 
-  load_tile<THREADS>(k_s, k, k0, nk, d);
-  load_tile<THREADS>(v_s, v, k0, nk, d);
-  float4 acc_k[R][NG], acc_v[R][NG];
-  zero(acc_k);
-  zero(acc_v);
-
-  for (int q0 = 0; q0 < nq; q0 += TILE) {
-    __syncthreads();
-    load_tile<THREADS>(q_s, q, q0, nq, d);
-    load_tile<THREADS>(do_s, dout, q0, nq, d);
-    if (threadIdx.x < TILE) {
-      const int row = q0 + threadIdx.x;
-      lse_s[threadIdx.x] = row < nq ? lse[row] : 0.f;
-      dl_s[threadIdx.x] = row < nq ? delta[row] : 0.f;
+  // query tile i of the walk into ring stage i & 1, one cp.async group
+  auto fetch = [&](int i) {
+    float* st = ring + (i & 1) * stage;
+    const int q0 = q_begin + i * BQ;
+    copy_rows_async<THREADS>(st, ld, q, q0, BQ, nq, d, 0, d);
+    copy_rows_async<THREADS>(st + BQ * ld, ld, dout, q0, BQ, nq, d, 0, d);
+    float* vec = st + 2 * BQ * ld;
+    for (int r = threadIdx.x; r < BQ; r += THREADS) {
+      const bool ok = q0 + r < nq;
+      cp_async4(vec + r, ok ? lse + q0 + r : lse, ok);
+      cp_async4(vec + BQ + r, ok ? delta + q0 + r : delta, ok);
     }
+    cp_async_commit();
+  };
+
+  copy_rows_async<THREADS>(k_s, ld, k, k0, BK, nk, d, 0, d);
+  copy_rows_async<THREADS>(v_s, ld, v, k0, BK, nk, d, 0, d);
+  cp_async_commit();
+  if (n_tiles > 0) fetch(0);
+
+  // phase 2: the warp's 16 keys × the 8-wide output column steps
+  // [j0, j0 + ns) of dk and dv
+  const int steps = d / 8;
+  const int per_warp = (steps + CW - 1) / CW;
+  const int j0 = cw * per_warp;
+  const int ns = max(0, min(per_warp, steps - j0));
+  const float* k_w = k_s + rw * 16 * ld;
+  const float* v_w = v_s + rw * 16 * ld;
+  float* p_w = p_s + rw * 16 * LDP;
+  float* ds_w = ds_s + rw * 16 * LDP;
+
+  float acc_k[NS][4], acc_v[NS][4];
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc_k[j][e] = 0.f;
+      acc_v[j][e] = 0.f;
+    }
+  }
+
+  for (int i = 0; i < n_tiles; ++i) {
+    // tile i has landed and every warp is done with tile i − 1: its stage
+    // may be refilled with tile i + 1 (and pᵀ, dsᵀ rewritten)
+    cp_async_wait<0>();
     __syncthreads();
-    // transposed scores: rows are this block's keys, columns the queries
-    float st[R][4], dpt[R][4];
-    score_tile<R>(st, k_s, q_s, d, ty, tx);
-    score_tile<R>(dpt, v_s, do_s, d, ty, tx);
+    if (i + 1 < n_tiles) fetch(i + 1);
+    const float* q_t = ring + (i & 1) * stage;
+    const float* do_t = q_t + BQ * ld;
+    const float* lse_t = do_t + BQ * ld;
+    const float* dl_t = lse_t + BQ;
+    const int q0 = q_begin + i * BQ;
+
+    if constexpr (CW == 1) {
+      // phase 1: sᵀ = k·qᵀ and dpᵀ = v·doᵀ, then in place p = exp(sᵀ·
+      // scale − lse) and ds = p∘(dpᵀ − δ) by query column; 0 at and past
+      // the walk's end (a zero-filled row has s = 0 and lse = 0)
+      float p[NJ][4], ds[NJ][4];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
+      for (int j = 0; j < NJ; ++j) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = tx + LANES * j;
-        const float p =
-            q0 + col < nq ? expf(st[r][j] * scale - lse_s[col]) : 0.f;
-        p_s[(ty + r * G) * SLD + col] = p;
-        ds_s[(ty + r * G) * SLD + col] = p * (dpt[r][j] - dl_s[col]);
+        for (int e = 0; e < 4; ++e) {
+          p[j][e] = 0.f;
+          ds[j][e] = 0.f;
+        }
+      }
+      for (int kk = 0; kk < d; kk += 8) {
+        FragA ak, av;
+        load_a(ak, k_w + kk, ld, g, t);
+        load_a(av, v_w + kk, ld, g, t);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          FragB bf;
+          load_b_t(bf, q_t + (8 * j) * ld + kk, ld, g, t);
+          mma_3xtf32(p[j], ak, bf);
+          load_b_t(bf, do_t + (8 * j) * ld + kk, ld, g, t);
+          mma_3xtf32(ds[j], av, bf);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * t + (e & 1);
+          const float pv =
+              q0 + c < q_end ? expf(p[j][e] * scale - lse_t[c]) : 0.f;
+          ds[j][e] = pv * (ds[j][e] - dl_t[c]);
+          p[j][e] = pv;
+        }
+      }
+
+      // phase 2: dv += pᵀ·do and dk += dsᵀ·q over the tile's BQ queries;
+      // the warp holds all BQ columns of its 16 rows
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        FragA ap, ad;
+        frag_a_from_c(ap, p[j]);
+        frag_a_from_c(ad, ds[j]);
+#pragma unroll
+        for (int jj = 0; jj < NS; ++jj) {
+          if (jj < ns) {
+            FragB bf;
+            load_b_pairs(bf, do_t, ld, 8 * j, 8 * (j0 + jj), g, t);
+            mma_3xtf32(acc_v[jj], ap, bf);
+            load_b_pairs(bf, q_t, ld, 8 * j, 8 * (j0 + jj), g, t);
+            mma_3xtf32(acc_k[jj], ad, bf);
+          }
+        }
+      }
+    } else {
+      // phase 1, one product a warp: the first CW/2 column-warps of a
+      // row-warp compute sᵀ = k·qᵀ and write p = exp(sᵀ·scale − lse) (0 at
+      // and past the walk's end), the others dpᵀ = v·doᵀ and write dpᵀ − δ,
+      // each over NX 8-query steps
+      constexpr int NX = NJ / (CW / 2);
+      const bool is_s = cw < CW / 2;
+      const int xc0 = (cw % (CW / 2)) * NX * 8;
+      const float* a_w = is_s ? k_w : v_w;
+      const float* b_t = is_s ? q_t : do_t;
+      float x[NX][4];
+#pragma unroll
+      for (int j = 0; j < NX; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[j][e] = 0.f;
+      }
+      for (int kk = 0; kk < d; kk += 8) {
+        FragA af;
+        load_a(af, a_w + kk, ld, g, t);
+#pragma unroll
+        for (int j = 0; j < NX; ++j) {
+          FragB bf;
+          load_b_t(bf, b_t + (xc0 + 8 * j) * ld + kk, ld, g, t);
+          mma_3xtf32(x[j], af, bf);
+        }
+      }
+      float* x_w = is_s ? p_w : ds_w;
+#pragma unroll
+      for (int j = 0; j < NX; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = xc0 + 8 * j + 2 * t;
+          float v0 = x[j][2 * h];
+          float v1 = x[j][2 * h + 1];
+          if (is_s) {
+            v0 = q0 + c < q_end ? expf(v0 * scale - lse_t[c]) : 0.f;
+            v1 = q0 + c + 1 < q_end ? expf(v1 * scale - lse_t[c + 1]) : 0.f;
+          } else {
+            v0 -= dl_t[c];
+            v1 -= dl_t[c + 1];
+          }
+          *reinterpret_cast<float2*>(x_w + (g + 8 * h) * LDP + c) =
+              make_float2(v0, v1);
+        }
+      }
+      __syncthreads();
+
+      // phase 2: dv += pᵀ·do and dk += dsᵀ·q, ds = p∘(dpᵀ − δ)
+#pragma unroll 2
+      for (int kk = 0; kk < BQ; kk += 8) {
+        FragA ap, ad;
+        load_a_pairs(ap, ad, p_w + kk, ds_w + kk, LDP, g, t);
+#pragma unroll
+        for (int jj = 0; jj < NS; ++jj) {
+          if (jj < ns) {
+            FragB bf;
+            load_b_pairs(bf, do_t, ld, kk, 8 * (j0 + jj), g, t);
+            mma_3xtf32(acc_v[jj], ap, bf);
+            load_b_pairs(bf, q_t, ld, kk, 8 * (j0 + jj), g, t);
+            mma_3xtf32(acc_k[jj], ad, bf);
+          }
+        }
       }
     }
-    __syncthreads();
-    accum_tile<R, NG>(acc_v, p_s, do_s, d, ty, tx);
-    accum_tile<R, NG>(acc_k, ds_s, q_s, d, ty, tx);
   }
+  cp_async_wait<0>();  // k and v, when the walk is empty
 
-  float one[R], mul[R];
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    one[r] = 1.f;
-    mul[r] = scale;
+  for (int h = 0; h < 2; ++h) {
+    const int row = k0 + rw * 16 + g + 8 * h;
+    if (row >= nk) continue;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      if (j < ns) {
+        const int64_t at = (int64_t)row * d + 8 * (j0 + j) + 2 * t;
+        *reinterpret_cast<float2*>(dk + at) = make_float2(
+            acc_k[j][2 * h] * dk_mul, acc_k[j][2 * h + 1] * dk_mul);
+        *reinterpret_cast<float2*>(dv + at) =
+            make_float2(acc_v[j][2 * h], acc_v[j][2 * h + 1]);
+      }
+    }
   }
-  store_rows<R, NG>(dk, acc_k, mul, k0, nk, d, ty, tx);
-  store_rows<R, NG>(dv, acc_v, one, k0, nk, d, ty, tx);
+}
+
+// The split walk's partials [splits][n4] (float4s) summed in the order
+// s = 0 … splits − 1: dk = scale · Σ, dv = Σ.
+__global__ void __launch_bounds__(256)
+flash_bwd_dkv_reduce_kernel(const float4* __restrict__ part_k,
+                            const float4* __restrict__ part_v,
+                            float4* __restrict__ dk, float4* __restrict__ dv,
+                            int splits, int64_t n4, float scale) {
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n4;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    float4 sk = part_k[i];
+    float4 sv = part_v[i];
+    for (int s = 1; s < splits; ++s) {
+      const float4 a = part_k[s * n4 + i];
+      const float4 c = part_v[s * n4 + i];
+      sk = make_float4(sk.x + a.x, sk.y + a.y, sk.z + a.z, sk.w + a.w);
+      sv = make_float4(sv.x + c.x, sv.y + c.y, sv.z + c.z, sv.w + c.w);
+    }
+    dk[i] = make_float4(sk.x * scale, sk.y * scale, sk.z * scale,
+                        sk.w * scale);
+    dv[i] = sv;
+  }
 }
 
 // ------------------------------------------------------------- launchers
@@ -799,6 +1097,18 @@ int launch(Kernel kernel, int threads, int64_t blocks, size_t smem,
   return (int)cudaGetLastError();
 }
 
+// `launch` with a two-dimensional grid.
+template <typename Kernel, typename... Args>
+int launch_grid(Kernel kernel, int threads, dim3 grid, size_t smem,
+                void* stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      args...);
+  return (int)cudaGetLastError();
+}
+
 template <int RW, int CW, int BK, int NS>
 int fwd_launch(const float* q, const float* k, const float* v, float* o,
                float* lse, int batch, int nq, int nk, int d, float scale,
@@ -818,14 +1128,70 @@ int dq_ng(const float* q, const float* k, const float* v, const float* dout,
                 delta, dq, nq, nk, d, scale);
 }
 
-template <int NG>
-int dkv_ng(const float* q, const float* k, const float* v, const float* dout,
-           const float* lse, const float* delta, float* dk, float* dv,
-           int batch, int nq, int nk, int d, float scale, void* stream) {
-  return launch(flash_bwd_dkv_kernel<DKV_R, NG>, threads_for(DKV_R),
-                grid_for(batch, nk), dkv_smem(d), stream, q, k, v, dout, lse,
-                delta, dk, dv, nq, nk, d, scale);
+// K3b over ⌈nq / rows_per_split⌉ splits of the query walk. One split
+// writes dk, dv directly; more write their unscaled partials to `work`
+// ([2][splits][batch · nk · d]: dk's, then dv's) and a second kernel sums
+// them in a fixed order.
+template <int RW, int CW, int BQ, int NS, int MINB>
+int dkv_launch(const float* q, const float* k, const float* v,
+               const float* dout, const float* lse, const float* delta,
+               float* dk, float* dv, float* work, int batch, int nq, int nk,
+               int d, int rows_per_split, float scale, void* stream) {
+  if (rows_per_split < BQ || rows_per_split % BQ != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int splits = (nq + rows_per_split - 1) / rows_per_split;
+  if (splits > 65535 || (splits > 1 && work == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int64_t per_split = (int64_t)batch * nk * d;
+  const int64_t blocks = (int64_t)batch * ((nk + 16 * RW - 1) / (16 * RW));
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  float* out_k = splits > 1 ? work : dk;
+  float* out_v = splits > 1 ? work + splits * per_split : dv;
+  int err = launch_grid(flash_bwd_dkv_kernel<RW, CW, BQ, NS, MINB>,
+                        RW * CW * 32,
+                        dim3((unsigned)blocks, (unsigned)splits),
+                        dkv_smem<RW, CW, BQ>(d), stream, q, k, v, dout, lse,
+                        delta, out_k, out_v, nq, nk, d, rows_per_split,
+                        per_split, splits > 1 ? 1.f : scale, scale);
+  if (err != 0 || splits == 1) return err;
+  const int64_t n4 = per_split / 4;
+  const int64_t reduce_blocks = std::min<int64_t>((n4 + 255) / 256, 8192);
+  return launch_grid(flash_bwd_dkv_reduce_kernel, 256,
+                     dim3((unsigned)reduce_blocks), 0, stream,
+                     reinterpret_cast<const float4*>(work),
+                     reinterpret_cast<const float4*>(work +
+                                                     splits * per_split),
+                     reinterpret_cast<float4*>(dk),
+                     reinterpret_cast<float4*>(dv), splits, n4, scale);
 }
+
+// Resident blocks of K3b per SM at head width d, or −1.
+template <int RW, int CW, int BQ, int NS, int MINB>
+int dkv_blocks_per_sm(int d) {
+  const auto kernel = flash_bwd_dkv_kernel<RW, CW, BQ, NS, MINB>;
+  const size_t smem = dkv_smem<RW, CW, BQ>(d);
+  int n = 0;
+  if (cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, RW * CW * 32,
+                                                    smem) != cudaSuccess) {
+    return -1;
+  }
+  return n;
+}
+
+// K3b's instantiation by D range: row-warps (BK = 16·RW keys), column-
+// warps, queries per tile, most column steps per warp, blocks per SM the
+// registers must allow. The split plan of
+// salun_torch/kernels/flash_attention.py (DKV_TILES) mirrors BK and BQ.
+#define SALUN_DKV_CONFIG(d, FN, ...)                         \
+  ((d) <= 40    ? FN<4, 1, 32, 5, 4>(__VA_ARGS__)            \
+   : (d) <= 64  ? FN<4, 1, 32, 8, 3>(__VA_ARGS__)            \
+   : (d) <= 128 ? FN<4, 2, 32, 8, 2>(__VA_ARGS__)            \
+                : FN<2, 4, 32, 8, 1>(__VA_ARGS__))
 
 // NG = ceil(d / 32) float4 column groups per thread, a template argument
 // so the accumulators stay in registers.
@@ -895,20 +1261,30 @@ extern "C" int salun_flash_bwd_dq(const void* q, const void* k,
                     batch, nq, nk, d, scale, stream)
 }
 
-// K3b: dk, dv [B, Nk, D] from the same inputs.
+// K3b: dk, dv [B, Nk, D] from the same inputs. The query walk is cut
+// into ⌈nq / rows_per_split⌉ splits (rows_per_split a multiple of the
+// tile's BQ); with more than one, `work` holds 2 · splits · B · Nk · D
+// floats of partials.
 extern "C" int salun_flash_bwd_dkv(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* lse, const void* delta,
-                                   void* dk, void* dv, int batch, int nq,
-                                   int nk, int d, float scale, void* stream) {
+                                   void* dk, void* dv, void* work, int batch,
+                                   int nq, int nk, int d, int rows_per_split,
+                                   float scale, void* stream) {
   if (!shape_ok(batch, nq, nk, d, MAX_D_BWD)) {
     return (int)cudaErrorInvalidValue;
   }
-  SALUN_DISPATCH_NG(d, dkv_ng, static_cast<const float*>(q),
-                    static_cast<const float*>(k),
-                    static_cast<const float*>(v),
-                    static_cast<const float*>(dout),
-                    static_cast<const float*>(lse),
-                    static_cast<const float*>(delta), static_cast<float*>(dk),
-                    static_cast<float*>(dv), batch, nq, nk, d, scale, stream)
+  return SALUN_DKV_CONFIG(
+      d, dkv_launch, static_cast<const float*>(q),
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dk),
+      static_cast<float*>(dv), static_cast<float*>(work), batch, nq, nk, d,
+      rows_per_split, scale, stream);
+}
+
+// K3b's resident blocks per SM at head width d (for the split plan), or −1.
+extern "C" int salun_flash_bwd_dkv_blocks_per_sm(int d) {
+  if (d < 8 || d > MAX_D_BWD || d % 8) return -1;
+  return SALUN_DKV_CONFIG(d, dkv_blocks_per_sm, d);
 }

@@ -12,6 +12,12 @@ Each wrapper runs its plain PyTorch version (``*_reference``) for tensors
 on the CPU, and launches its kernel for tensors on a CUDA device (building
 it on first use) or raises; it counts its launches in ``.launches``.
 
+K3b cuts its walk over the query tiles into contiguous splits where one
+block per k-tile would leave SMs idle (:func:`dkv_split_plan`); the
+splits' partial dk, dv go to a workspace from PyTorch's caching allocator
+and are summed in a fixed order inside the same entry point, which counts
+as one launch.
+
 :class:`FlashAttention` is the autograd function, as ``_fa_fwd_rule`` /
 ``_fa_bwd_rule``: K2 with the compact residual lse = m + log l saved
 beside ``(q, k, v, o)``; backward δ = Σ_d do∘o in torch (outside the
@@ -21,11 +27,21 @@ Pallas kernels in JAX too), then K3a and K3b.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 MAX_D_FWD = 512  # K2
 MAX_D_BWD = 256  # K3a, K3b
+
+# K3b's tiles by head width: (largest D, keys per block BK, queries per
+# tile BQ), those of ``SALUN_DKV_CONFIG``'s instantiations in
+# csrc/flash_attention.cu (its entry point refuses a split that is not a
+# multiple of its BQ).
+DKV_TILES = ((128, 64, 32), (256, 32, 32))
+# a split walks at least this many query tiles, so that the partials'
+# extra traffic and the summing launch stay small beside the walk
+DKV_MIN_SPLIT_TILES = 4
 
 
 # ------------------------------------------------------- plain versions
@@ -146,6 +162,56 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale: float):
     return dq
 
 
+def dkv_tiles(d: int):
+    """K3b's ``(BK, BQ)`` at head width ``d``."""
+    for max_d, bk, bq in DKV_TILES:
+        if d <= max_d:
+            return bk, bq
+    raise ValueError(f"head dim {d}: K3b takes D up to {MAX_D_BWD}")
+
+
+def dkv_split_plan(batch: int, nq: int, nk: int, d: int,
+                   resident_blocks: int):
+    """How K3b cuts its query walk: ``(splits, rows_per_split)``.
+
+    One block per (batch, k-tile) walks all ⌈nq/BQ⌉ query tiles. Where
+    those blocks are fewer than the card holds at once
+    (``resident_blocks``: SMs × K3b's blocks per SM), each walk is cut into
+    ``splits`` contiguous ranges of ``rows_per_split`` query rows (a
+    multiple of BQ; the last range ends at nq), one block each, so that
+    the grid fills the card in one wave; each range holds at least
+    ``DKV_MIN_SPLIT_TILES`` tiles. Split s covers rows
+    ``[s · rows_per_split, min(nq, (s + 1) · rows_per_split))``.
+    """
+    bk, bq = dkv_tiles(d)
+    n_qt = math.ceil(nq / bq)
+    blocks = batch * math.ceil(nk / bk)
+    splits = max(1, min(n_qt // DKV_MIN_SPLIT_TILES,
+                        resident_blocks // blocks))
+    per = math.ceil(n_qt / splits)
+    return math.ceil(n_qt / per), per * bq
+
+
+_resident = {}
+
+
+def dkv_resident_blocks(device, d: int) -> int:
+    """SMs × K3b's resident blocks per SM at head width ``d`` on
+    ``device`` (registers and shared memory, from the CUDA runtime)."""
+    key = (device.index, d)
+    if key not in _resident:
+        fn = getattr(_library(), "salun_flash_bwd_dkv_blocks_per_sm")
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+        with torch.cuda.device(device):
+            per_sm = fn(d)
+        if per_sm < 1:
+            raise RuntimeError(f"K3b cannot run at head dim {d}: "
+                               f"{per_sm} blocks per SM")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _resident[key] = sms * per_sm
+    return _resident[key]
+
+
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale: float):
     """K3b: ``(dk, dv)``, each ``[B, Nk, D]``."""
     b, nq, nk, d = _check(q, k, v, do=do, lse=lse, delta=delta)
@@ -153,10 +219,16 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale: float):
         return flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
                                                  scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch(_kernel("salun_flash_bwd_dkv", 8), "K3b", q, q.data_ptr(),
+    splits, rows = dkv_split_plan(b, nq, nk, d,
+                                  dkv_resident_blocks(q.device, d))
+    # freed on return, but the caching allocator hands it out again only
+    # to work queued behind this launch on the same stream
+    work = (torch.empty((2, splits, b, nk, d), dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
+    _launch(_kernel("salun_flash_bwd_dkv", 9, 5), "K3b", q, q.data_ptr(),
             k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, nq, nk, d,
-            float(scale))
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(work), b,
+            nq, nk, d, rows, float(scale))
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
@@ -166,14 +238,19 @@ flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
 
 
-def _kernel(symbol: str, n_ptrs: int):
-    """The C entry point ``symbol``: ``n_ptrs`` pointers, then batch, nq,
-    nk, d (int), scale (float) and the stream."""
+def _library():
     from ._build import load
 
-    fn = getattr(load("flash_attention"), symbol)
+    return load("flash_attention")
+
+
+def _kernel(symbol: str, n_ptrs: int, n_ints: int = 4):
+    """The C entry point ``symbol``: ``n_ptrs`` pointers, then ``n_ints``
+    ints (batch, nq, nk, d and, for K3b, rows_per_split), scale (float)
+    and the stream."""
+    fn = getattr(_library(), symbol)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn

@@ -162,3 +162,86 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
         return
     with pytest.raises((TypeError, ValueError)):
         fa.flash_attention_fwd(q, k, v, 0.125)
+
+
+# K3b's split plan at the paths' shapes (B·heads, Nq, Nk, D): the DDPM
+# U-Net's and the SD U-Net's self- and cross-attention
+_SELF = [(128, 256, 256, 256), (256, 256, 256, 256), (128, 16, 16, 256),
+         (32, 4096, 4096, 40), (32, 1024, 1024, 80), (32, 256, 256, 160)]
+_CROSS = [(32, 4096, 77, 40), (32, 1024, 77, 80), (32, 256, 77, 160),
+          (32, 64, 77, 160), (32, 64, 64, 160)]
+
+
+@pytest.mark.parametrize("per_sm", [1, 2, 4])
+@pytest.mark.parametrize("shape", _SELF + _CROSS + [(1, 4096, 5, 80),
+                                                    (2, 1000, 77, 40),
+                                                    (1, 5, 100, 40),
+                                                    (3, 1, 1, 8)], ids=str)
+def test_dkv_split_plan_covers_every_query_tile_once(shape, per_sm):
+    """Split s covers query rows [s·rows, min(nq, (s+1)·rows)): each range
+    is non-empty and a whole number of BQ-row tiles but the last, together
+    they hold every query tile exactly once, and the grid stays within
+    one wave of an H100's 132 SMs where it was split."""
+    b, nq, nk, d = shape
+    resident = 132 * per_sm
+    splits, rows = fa.dkv_split_plan(b, nq, nk, d, resident)
+    bk, bq = fa.dkv_tiles(d)
+    assert rows % bq == 0 and 1 <= splits <= -(-nq // bq)
+    assert splits == 1 or rows // bq >= fa.DKV_MIN_SPLIT_TILES
+    starts = [s * rows for s in range(splits)]
+    ends = [min(nq, s0 + rows) for s0 in starts]
+    assert all(s0 < e for s0, e in zip(starts, ends))
+    tiles = [t for s0, e in zip(starts, ends) for t in range(s0 // bq,
+                                                             -(-e // bq))]
+    assert tiles == list(range(-(-nq // bq)))
+    if splits > 1:
+        assert b * -(-nk // bk) * splits <= resident
+
+
+def _blocks_per_sm(d):
+    """K3b's resident blocks per SM by head width, from its registers and
+    shared memory (``-Xptxas -v`` on sm_90a: 126, 156, 128 and 168
+    registers for D ≤ 40, ≤ 64, ≤ 128, ≤ 256; 212 KB of shared memory at
+    D = 256)."""
+    return 4 if d <= 40 else 3 if d <= 64 else 2 if d <= 128 else 1
+
+
+def test_dkv_split_plan_splits_only_the_short_key_walks():
+    """For 132 SMs: one split at the DDPM and the SD self-attention shapes,
+    several at SD cross-attention (Nk = 77) where B·⌈Nk/BK⌉ blocks leave
+    SMs idle and the walk is long enough to share."""
+    for b, nq, nk, d in _SELF + [(32, 64, 64, 160), (32, 64, 77, 160)]:
+        assert fa.dkv_split_plan(b, nq, nk, d,
+                                 132 * _blocks_per_sm(d))[0] == 1
+    assert fa.dkv_split_plan(32, 4096, 77, 40, 132 * 4) == (8, 512)
+    assert fa.dkv_split_plan(32, 1024, 77, 80, 132 * 2) == (4, 256)
+    # 96 blocks of 32 keys on 132 SMs at one block each stay whole
+    assert fa.dkv_split_plan(32, 256, 77, 160, 132)[0] == 1
+
+
+@pytest.mark.parametrize("shape", [(2, 1000, 77, 40), (1, 300, 5, 80)],
+                         ids=str)
+def test_plain_dkv_summed_over_splits_matches_the_whole(rng, shape):
+    """The split walk's premise: dk and dv are sums over query rows, so the
+    plain K3b of each split's rows, summed in the order s = 0, 1, …,
+    equals the whole within fp32 rounding."""
+    b, nq, nk, d = shape
+    q, k, v = _t(*_qkv(rng, b, nq, nk, d))
+    do = torch.from_numpy(rng.standard_normal((b, nq, d)).astype(np.float32))
+    scale = d ** -0.5
+    o, lse = fa.flash_attention_fwd_reference(q, k, v, scale)
+    delta = (do * o).sum(-1)
+    want = fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                scale)
+    splits, rows = fa.dkv_split_plan(b, nq, nk, d, 16)
+    assert splits > 1
+    got = [torch.zeros_like(k), torch.zeros_like(v)]
+    for s in range(splits):
+        r = slice(s * rows, (s + 1) * rows)
+        part = fa.flash_attention_bwd_dkv_reference(
+            q[:, r].contiguous(), k, v, do[:, r].contiguous(),
+            lse[:, r].contiguous(), delta[:, r].contiguous(), scale)
+        got = [acc + x for acc, x in zip(got, part)]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
+                                   atol=1e-5)

@@ -7,14 +7,16 @@ card's machine run ``python -m pytest tests/test_torch_attention_cuda.py
 -m cuda --noconftest -p no:cacheprovider``.
 
 Tolerance: both sides compute to about fp32 precision (TF32 off for the
-plain versions), but sum in other orders. K2 multiplies on the tensor
-cores in 3xTF32 (each operand split into two TF32 parts, three products
-summed in fp32: about 22 of fp32's 24 bits) over 64-wide key tiles with an
-online softmax; K3a/K3b use sequential fp32 FMAs over 32-wide tiles; the
-plain versions cuBLAS SGEMM over materialised scores. They differ by about
-1e-6 of the largest value here. The bound ``1e-4 · max(1, max|want|)``
-leaves 100× room and still fails plain TF32 (~5e-4 relative) or any
-indexing fault (O(1)); the K2 width test also holds 3xTF32 to 2e-5.
+plain versions), but sum in other orders. K2 and K3b multiply on the
+tensor cores in 3xTF32 (each operand split into two TF32 parts, three
+products summed in fp32: about 22 of fp32's 24 bits), K2 over 64-wide key
+tiles with an online softmax, K3b over 32- or 64-wide query tiles, split
+over blocks where the grid is small; K3a uses sequential fp32 FMAs over
+32-wide tiles; the plain versions cuBLAS SGEMM over materialised scores.
+They differ by about 1e-6 of the largest value here. The bound ``1e-4 ·
+max(1, max|want|)`` leaves 100× room and still fails plain TF32 (~5e-4
+relative) or any indexing fault (O(1)); the K2 and K3b width tests also
+hold 3xTF32 to 2e-5.
 """
 
 import pytest
@@ -141,6 +143,74 @@ def test_k2_is_bitwise_deterministic_on_card(cuda, shape):
     q, k, v, _ = _inputs(cuda, b, nq, nk, d, seed=4)
     first = fa.flash_attention_fwd(q, k, v, d ** -0.5, need_lse=True)
     second = fa.flash_attention_fwd(q, k, v, d ** -0.5, need_lse=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+def _dkv_on_card(cuda, shape, seed):
+    """K3b and its plain version on the same inputs (lse and δ from the
+    plain forward): ``(dk, dv, want_dk, want_dv)``."""
+    b, nq, nk, d = shape
+    q, k, v, do = _inputs(cuda, b, nq, nk, d, seed=seed)
+    scale = d ** -0.5
+    want_o, lse = fa.flash_attention_fwd_reference(q, k, v, scale)
+    delta = (do * want_o).sum(-1)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)
+    want_dk, want_dv = fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse,
+                                                            delta, scale)
+    torch.cuda.synchronize()
+    return dk, dv, want_dk, want_dv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (2, 33, 77, 8), (2, 77, 33, 40), (2, 33, 77, 64), (2, 77, 33, 80),
+    (2, 33, 77, 128), (2, 77, 33, 160), (2, 33, 77, 256),
+    (3, 130, 16, 256),  # the DDPM mid block's N, ragged
+], ids=str)
+def test_k3b_every_width_matches_plain_on_card(cuda, shape):
+    """K3b at every head width it instantiates (D ≤ 64, ≤ 128, ≤ 256) and
+    D = 8, 40, 80, 160 inside them, ragged Nq ≠ Nk: within 1e-4 and, as
+    3xTF32 keeps about 1e-6, within 2e-5 of the largest value."""
+    dk, dv, want_dk, want_dv = _dkv_on_card(cuda, shape, seed=5)
+    for got, want in ((dk, want_dk), (dv, want_dv)):
+        _close(got, want)
+        _close(got, want, tol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1000, 77, 40), (1, 4096, 5, 80),
+                                   (4, 300, 77, 160), (1, 5, 100, 40)],
+                         ids=str)
+def test_k3b_split_walk_matches_plain_on_card(cuda, shape):
+    """Short Nk: the query walk is split over blocks (SD cross-attention's
+    Nk = 77; one k-tile at Nk = 5) and the partials summed by a second
+    kernel, still one counted launch; and Nq below one query tile."""
+    b, nq, nk, d = shape
+    splits, _ = fa.dkv_split_plan(b, nq, nk, d,
+                                  fa.dkv_resident_blocks(cuda, d))
+    assert (splits > 1) == (nq > 5)
+    before = fa.flash_attention_bwd_dkv.launches
+    dk, dv, want_dk, want_dv = _dkv_on_card(cuda, shape, seed=6)
+    assert fa.flash_attention_bwd_dkv.launches == before + 1
+    for got, want in ((dk, want_dk), (dv, want_dv)):
+        _close(got, want)
+        _close(got, want, tol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(128, 256, 256, 256), (32, 4096, 77, 40),
+                                   (2, 300, 300, 80)], ids=str)
+def test_k3b_is_bitwise_deterministic_on_card(cuda, shape):
+    """No atomics, a fixed summation order (the split walk's partials too):
+    two launches on the same inputs give the same dk and dv, bit for
+    bit."""
+    b, nq, nk, d = shape
+    q, k, v, do = _inputs(cuda, b, nq, nk, d, seed=7)
+    lse = torch.randn(b, nq, device=cuda).abs() + 3.0
+    delta = torch.randn(b, nq, device=cuda)
+    first = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, d ** -0.5)
+    second = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, d ** -0.5)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(first, second))
 
