@@ -20,12 +20,14 @@ Phases, each of which fails the script (exit code 1) when it fails:
    77, Nq ≠ Nk, D = 40, 64, 160, 8): max abs and relative error, failing
    above 1e-4·max(1, max|plain|); K2 launched twice at [128, 256, 256,
    256], [32, 1024, 1024, 80] and [4, 4096, 4096, 512] gives bitwise equal
-   o and lse, K3b launched twice at [128, 256, 256, 256], [32, 4096, 4096,
-   40] and [32, 4096, 77, 40] (a split query walk) bitwise equal dk and
-   dv; K3b's split count is logged at every shape. Times with CUDA events,
-   the bound (K2's and K3b's operations at the 3xTF32 tensor-core roof,
-   495/3 TFLOP/s, with the fp32 CUDA-core bound beside it; K3a at the CUDA
-   cores' 67 TFLOP/s), the plain version's time and, for K2/K3, the time of
+   o and lse, K3a launched twice at [128, 256, 256, 256], [32, 4096, 4096,
+   40] and [128, 16, 16, 256] bitwise equal dq, K3b launched twice at
+   [128, 256, 256, 256], [32, 4096, 4096, 40] and [32, 4096, 77, 40] (a
+   split query walk) bitwise equal dk and dv; K3b's split count is logged
+   at every shape. All three multiply on the tensor cores in 3xTF32. Times
+   with CUDA events, the bound (the operations at the 3xTF32 tensor-core
+   roof, 495/3 TFLOP/s, with the fp32 CUDA-core bound beside it), the
+   plain version's time and, for K2/K3, the time of
    ``torch.nn.functional.scaled_dot_product_attention`` (forward; backward
    through autograd) on the same tensors, as a yardstick only. K4 and K4b
    (fused GroupNorm + SiLU forward and backward) against their plain
@@ -118,6 +120,9 @@ ATTN_TOL = 1e-4  # × max(1, max|plain|): fp32 sums in other orders
 # K2 launched twice must give the same o and lse, bitwise (no atomics)
 K2_BITWISE = [(128, 256, 256, 256), (32, 1024, 1024, 80),
               (4, 4096, 4096, 512)]
+# K3a the same for dq
+K3A_BITWISE = [(128, 256, 256, 256), (32, 4096, 4096, 40),
+               (128, 16, 16, 256)]
 # K3b the same for dk and dv; [32, 4096, 77, 40] takes the split walk
 K3B_BITWISE = [(128, 256, 256, 256), (32, 4096, 4096, 40),
                (32, 4096, 77, 40)]
@@ -297,12 +302,9 @@ def _attn_work(name: str, b: int, nq: int, nk: int, d: int):
 
 def _attn_bound(name: str, shape):
     """(bytes, operations, bound ms, bound_by, roof, CUDA-core bound ms):
-    K2 and K3b multiply on the tensor cores in 3xTF32, K3a on the CUDA
-    cores in fp32."""
+    K2, K3a and K3b multiply on the tensor cores in 3xTF32."""
     n_bytes, n_ops = _attn_work(name, *shape)
-    fp32_ms, fp32_by = _bound(n_bytes, n_ops)
-    if name == "K3a":
-        return n_bytes, n_ops, fp32_ms, fp32_by, "fp32 CUDA cores", fp32_ms
+    fp32_ms, _ = _bound(n_bytes, n_ops)
     bound_ms, bound_by = _bound(n_bytes, n_ops, TF32X3_FLOPS)
     return n_bytes, n_ops, bound_ms, bound_by, "3xTF32 tensor cores", fp32_ms
 
@@ -316,6 +318,17 @@ def _k2_bitwise(fa, q, k, v, scale, first, shape) -> None:
     if not all(torch.equal(x, y) for x, y in zip(first, again)):
         fail(f"K2 is not bitwise deterministic at {list(shape)}")
     log(f"K2 {list(shape)}: two launches give bitwise equal o and lse")
+
+
+def _k3a_bitwise(fa, bwd, first, shape) -> None:
+    """K3a launched again on the same inputs gives ``first`` bit for bit."""
+    import torch
+
+    again = fa.flash_attention_bwd_dq(*bwd)
+    torch.cuda.synchronize()
+    if not torch.equal(first, again):
+        fail(f"K3a is not bitwise deterministic at {list(shape)}")
+    log(f"K3a {list(shape)}: two launches give bitwise equal dq")
 
 
 def _k3b_split(fa, device, shape) -> str:
@@ -382,6 +395,8 @@ def attention_vs_plain(device):
                          f"{list(shape)}: max abs err {err}")
         if shape in K2_BITWISE:
             _k2_bitwise(fa, q, k, v, scale, k2_out, shape)
+        if shape in K3A_BITWISE:
+            _k3a_bitwise(fa, bwd, pairs["K3a"][0][0], shape)
         log(_k3b_split(fa, device, shape))
         if shape in K3B_BITWISE:
             _k3b_bitwise(fa, bwd, pairs["K3b"][0], shape)
@@ -587,6 +602,8 @@ def sd_attention_vs_plain(device):
                     f"to max|plain| {err / max(ref, 1e-30):.3e}")
         if shape in K2_BITWISE:
             _k2_bitwise(fa, q, k, v, scale, k2_out, shape)
+        if shape in K3A_BITWISE:
+            _k3a_bitwise(fa, bwd, pairs["K3a"][0][0], shape)
         if d <= fa.MAX_D_BWD:
             log(_k3b_split(fa, device, shape))
         if shape in K3B_BITWISE:

@@ -58,16 +58,48 @@
 //
 // K3a and K3b: bound operations too (6·B·Nq·Nk·D and 8·B·Nq·Nk·D flop on
 // about as many bytes as K2, 64 to 128 flop per byte at the DDPM shape).
-// They read the lse that K2 writes.
+// They read the lse that K2 writes. Both multiply in 3xTF32 on the tensor
+// cores, so their bound is K2's roof.
 //
-// K3a computes in plain fp32 FFMA on the CUDA cores (roof 67 TFLOP/s):
-// every product is a 32×32 tile read from shared memory, where each thread
-// keeps a 2×4 register tile of scores and 2 rows × D/8 columns of the
-// accumulator, so each 16-byte shared-memory load feeds up to 8 FMAs.
-// Rows are padded to D + 4 floats, which keeps the 16-byte loads of eight
-// neighbouring rows free of bank conflicts for every D that is a multiple
-// of 8. Tiles are 32 rows, so the DDPM mid block (N = 16) is one masked
-// tile.
+// K3a (`salun_flash_bwd_dq`) replaces salun/kernels/flash_attention.py:156
+// `_bwd_dq_kernel` (called at :293 from `_fa_bwd_rule` :253). It walks as
+// K2 does (query rows resident, keys streamed) and multiplies as K3b does,
+// with the roles of q and k swapped and one product fewer. Its design:
+// - A block owns BQ = 16·RW query rows and keeps q and do resident in
+//   shared memory (rows of d + 4 floats); the lse and δ of a thread's two
+//   rows stay in registers for the whole walk.
+// - It walks the key tiles of BK keys. k and v arrive through a two-stage
+//   ring of 16-byte `cp.async.cg` copies, zero-filled past Nk; the next
+//   load is in flight while the current one is multiplied. A stage holds a
+//   column chunk of k and one of v (BK keys × ≤ DC columns). Where d > DC
+//   (128 < D ≤ 256) a tile passes in ⌈d/DC⌉ such chunks for phase 1, then
+//   k again, from L2, in chunks of whole key rows for phase 2, so that
+//   two blocks fit an SM at D = 256 (q and do alone take 65 KB there).
+// - Phase 1: s = q·kᵀ and dp = do·vᵀ in 3xTF32 `mma.sync` (q and do the A
+//   operand, k and v read as Xᵀ the B operand), then p = exp(s·scale −
+//   lse), set to 0 by key column past Nk, and ds = p∘(dp − δ). With CW = 1
+//   a warp computes both for all the tile's keys, in registers. With
+//   CW > 1, half the column-warps of a row-warp compute s and write p, the
+//   other half dp and write dp − δ, each over a share of the key columns;
+//   p and dp − δ go through shared memory.
+// - Phase 2: dq += ds·k, k the B operand read row-major. Its k slots
+//   (keys) are taken in the order 2t, 2t + 1 (see `load_b_pairs`), so with
+//   CW = 1 the A operand is phase 1's C fragment, still in the warp's
+//   registers; with CW > 1 it is read from shared memory, ds formed as it
+//   is read. Each column-warp owns ⌈D/8/CW⌉ 8-wide column steps of dq,
+//   16·D/(32·CW) ≤ 32 floats a thread.
+// - The instantiations trade registers for resident warps: BQ = 64 rows,
+//   BK = 32 keys and CW = 1 with 4 blocks an SM up to D = 40 (SD's level
+//   0), 3 up to 64; CW = 2 and 2 blocks up to 128 (one at D = 128); BQ =
+//   32, CW = 4, 64-column chunks and 2 blocks up to 256. Where Nq ≤ 16 at
+//   D > 128 (the DDPM mid block), BQ = 16 and k and v pass whole, one
+//   load a tile instead of six: such a grid is one wave anyway.
+// - Every fragment read is free of bank conflicts: rows of d + 4 and
+//   dc + 4 floats (a stride of 4·odd), p and dp − δ rows of BK + 8.
+// - No atomics, fixed summation order: dq is the same, bitwise, from run
+//   to run. dq·scale is applied once, at the store; rows past Nq are
+//   skipped. There is no split of the key walk: the walk is short only
+//   where Nq is short too.
 //
 // K3b (`salun_flash_bwd_dkv`) replaces salun/kernels/flash_attention.py:188
 // `_bwd_dkv_kernel` (called at :305 from `_fa_bwd_rule` :253). It is K2's
@@ -117,155 +149,10 @@
 
 namespace {
 
-constexpr int TILE = 32;       // rows of a q-tile and of a k-tile
-constexpr int LANES = 8;       // threads that share one row of a tile
-constexpr int SLD = TILE + 1;  // row stride of a score tile in smem
 constexpr int MAX_D_FWD = 512;  // K2
 constexpr int MAX_D_BWD = 256;  // K3a, K3b
 
 __host__ __device__ constexpr int row_stride(int d) { return d + 4; }
-
-// Rows [row0, row0 + TILE) of the row-major [n, d] matrix `src` into
-// shared memory (row stride d + 4); rows at or past n are zero.
-template <int THREADS>
-__device__ __forceinline__ void load_tile(float* dst,
-                                          const float* __restrict__ src,
-                                          int row0, int n, int d) {
-  const int d4 = d / 4;
-  const int ld = row_stride(d);
-  for (int idx = threadIdx.x; idx < TILE * d4; idx += THREADS) {
-    const int r = idx / d4;
-    const int c = idx - r * d4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n) {
-      val = __ldg(reinterpret_cast<const float4*>(
-                      src + (int64_t)(row0 + r) * d) + c);
-    }
-    *reinterpret_cast<float4*>(dst + r * ld + 4 * c) = val;
-  }
-}
-
-// s[r][j] = Σ_c a[ty + r·G][c] · b[tx + 8j][c] over the d columns of two
-// shared-memory tiles, G = TILE / R: the thread's rows of a 32×32 score
-// tile.
-template <int R>
-__device__ __forceinline__ void score_tile(float (&s)[R][4], const float* a,
-                                           const float* b, int d, int ty,
-                                           int tx) {
-  constexpr int G = TILE / R;
-  const int ld = row_stride(d);
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
-  }
-#pragma unroll 2
-  for (int c = 0; c < d; c += 4) {
-    float4 av[R], bv[4];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      av[r] = *reinterpret_cast<const float4*>(a + (ty + r * G) * ld + c);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      bv[j] = *reinterpret_cast<const float4*>(b + (tx + LANES * j) * ld + c);
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float acc = s[r][j];
-        acc = fmaf(av[r].x, bv[j].x, acc);
-        acc = fmaf(av[r].y, bv[j].y, acc);
-        acc = fmaf(av[r].z, bv[j].z, acc);
-        acc = fmaf(av[r].w, bv[j].w, acc);
-        s[r][j] = acc;
-      }
-    }
-  }
-}
-
-// acc[r][g] += Σ_j p[ty + r·G][j] · b[j][4(tx + 8g) .. +3] over the TILE
-// rows of the shared-memory tile b; p is a score tile (row stride SLD).
-template <int R, int NG>
-__device__ __forceinline__ void accum_tile(float4 (&acc)[R][NG],
-                                           const float* p, const float* b,
-                                           int d, int ty, int tx) {
-  constexpr int G = TILE / R;
-  const int ld = row_stride(d);
-  const int d4 = d / 4;
-#pragma unroll 4
-  for (int j = 0; j < TILE; ++j) {
-    float pv[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) pv[r] = p[(ty + r * G) * SLD + j];
-#pragma unroll
-    for (int g = 0; g < NG; ++g) {
-      const int c4 = tx + LANES * g;
-      if (c4 < d4) {
-        const float4 bv = *reinterpret_cast<const float4*>(b + j * ld + 4 * c4);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          acc[r][g].x = fmaf(pv[r], bv.x, acc[r][g].x);
-          acc[r][g].y = fmaf(pv[r], bv.y, acc[r][g].y);
-          acc[r][g].z = fmaf(pv[r], bv.z, acc[r][g].z);
-          acc[r][g].w = fmaf(pv[r], bv.w, acc[r][g].w);
-        }
-      }
-    }
-  }
-}
-
-template <int R, int NG>
-__device__ __forceinline__ void zero(float4 (&acc)[R][NG]) {
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-#pragma unroll
-    for (int g = 0; g < NG; ++g) acc[r][g] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-// The thread's rows of acc into rows [row0, row0 + TILE) of the [n, d]
-// matrix dst, each multiplied by mul[r]; rows at or past n are skipped.
-template <int R, int NG>
-__device__ __forceinline__ void store_rows(float* __restrict__ dst,
-                                           const float4 (&acc)[R][NG],
-                                           const float (&mul)[R], int row0,
-                                           int n, int d, int ty, int tx) {
-  constexpr int G = TILE / R;
-  const int d4 = d / 4;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int row = row0 + ty + r * G;
-    if (row >= n) continue;
-    float4* out = reinterpret_cast<float4*>(dst + (int64_t)row * d);
-#pragma unroll
-    for (int g = 0; g < NG; ++g) {
-      const int c4 = tx + LANES * g;
-      if (c4 < d4) {
-        out[c4] = make_float4(acc[r][g].x * mul[r], acc[r][g].y * mul[r],
-                              acc[r][g].z * mul[r], acc[r][g].w * mul[r]);
-      }
-    }
-  }
-}
-
-// Reductions over the 8 threads of a row: they are 8 neighbouring lanes.
-__device__ __forceinline__ float row_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-}
-
-__device__ __forceinline__ float row_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 4);
-  v += __shfl_xor_sync(0xffffffffu, v, 2);
-  return v + __shfl_xor_sync(0xffffffffu, v, 1);
-}
-
-__host__ __device__ constexpr int threads_for(int r) {
-  return LANES * TILE / r;
-}
 
 // ------------------------------------------------------------------ K2
 
@@ -651,81 +538,6 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ------------------------------------------------------------------ K3a
-
-constexpr int DQ_R = 2;
-
-size_t dq_smem(int d) {
-  return sizeof(float) * (4 * TILE * row_stride(d) + TILE * SLD);
-}
-
-template <int R, int NG>
-__global__ void __launch_bounds__(threads_for(R))
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
-                    const float* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq,
-                    int nq, int nk, int d, float scale) {
-  constexpr int THREADS = threads_for(R);
-  constexpr int G = TILE / R;
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);
-  float* do_s = q_s + TILE * row_stride(d);
-  float* k_s = do_s + TILE * row_stride(d);
-  float* v_s = k_s + TILE * row_stride(d);
-  float* ds_s = v_s + TILE * row_stride(d);
-
-  const int n_qt = (nq + TILE - 1) / TILE;
-  const int b = blockIdx.x / n_qt;
-  const int q0 = (blockIdx.x - b * n_qt) * TILE;
-  const int tx = threadIdx.x % LANES;
-  const int ty = threadIdx.x / LANES;
-  q += (int64_t)b * nq * d;
-  dout += (int64_t)b * nq * d;
-  dq += (int64_t)b * nq * d;
-  k += (int64_t)b * nk * d;
-  v += (int64_t)b * nk * d;
-
-  load_tile<THREADS>(q_s, q, q0, nq, d);
-  load_tile<THREADS>(do_s, dout, q0, nq, d);
-  float lse_r[R], dl_r[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int row = q0 + ty + r * G;
-    lse_r[r] = row < nq ? lse[(int64_t)b * nq + row] : 0.f;
-    dl_r[r] = row < nq ? delta[(int64_t)b * nq + row] : 0.f;
-  }
-  float4 acc[R][NG];
-  zero(acc);
-
-  for (int k0 = 0; k0 < nk; k0 += TILE) {
-    __syncthreads();
-    load_tile<THREADS>(k_s, k, k0, nk, d);
-    load_tile<THREADS>(v_s, v, k0, nk, d);
-    __syncthreads();
-    float s[R][4], dp[R][4];
-    score_tile<R>(s, q_s, k_s, d, ty, tx);
-    score_tile<R>(dp, do_s, v_s, d, ty, tx);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool valid = k0 + tx + LANES * j < nk;
-        const float p = valid ? expf(s[r][j] * scale - lse_r[r]) : 0.f;
-        ds_s[(ty + r * G) * SLD + tx + LANES * j] = p * (dp[r][j] - dl_r[r]);
-      }
-    }
-    __syncthreads();
-    accum_tile<R, NG>(acc, ds_s, k_s, d, ty, tx);
-  }
-
-  float mul[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) mul[r] = scale;
-  store_rows<R, NG>(dq, acc, mul, q0, nq, d, ty, tx);
-}
-
 // ------------------------------------------------------------------ K3b
 
 // Phase 2 multiplies over a tile's queries, the MMA's k dimension. Its k
@@ -1072,15 +884,336 @@ flash_bwd_dkv_reduce_kernel(const float4* __restrict__ part_k,
   }
 }
 
+// ------------------------------------------------------------------ K3a
+
+// Shared-memory layout of K3a (in floats), the same on host and device: q
+// and do resident (BQ rows of d + 4), a two-stage ring and, with CW > 1,
+// p and dp − δ [BQ][BK + 8] (as K3b's pᵀ and dsᵀ). A ring stage holds a
+// column chunk of k and one of v (BK keys × dc = min(d, DC) columns, rows
+// of dc + 4) or, where d > DC, a chunk of kr whole key rows of k (rows of
+// d + 4) for phase 2.
+__host__ __device__ constexpr int dq_dc(int d, int dc_max) {
+  return d < dc_max ? d : dc_max;
+}
+__host__ __device__ constexpr int dq_stage(int d, int bk, int dc_max) {
+  return 2 * bk * (dq_dc(d, dc_max) + 4);
+}
+__host__ __device__ inline int dq_kr(int d, int bk, int dc_max) {
+  int kr = bk;
+  while (kr > 8 && kr * row_stride(d) > dq_stage(d, bk, dc_max)) kr /= 2;
+  return kr;
+}
+
+template <int RW, int CW, int BK, int DC>
+size_t dq_smem(int d) {
+  constexpr int BQ = 16 * RW;
+  return sizeof(float) * (2 * BQ * row_stride(d) + 2 * dq_stage(d, BK, DC) +
+                          (CW > 1 ? 2 * BQ * (BK + 8) : 0));
+}
+
+// acc[j] += ds·k over `keys` keys for the warp's column steps [j0, j0 +
+// ns): ds = p∘x read from the row-major tiles p and x (row stride ldp),
+// k's rows from kb (row stride ldb), both in the key order of
+// `load_b_pairs`.
+template <int NS>
+__device__ __forceinline__ void dq_accum(float (&acc)[NS][4], const float* p,
+                                         const float* x, int ldp,
+                                         const float* kb, int ldb, int keys,
+                                         int j0, int ns, int g, int t) {
+#pragma unroll 2
+  for (int kk = 0; kk < keys; kk += 8) {
+    FragA unused, a;  // the compiler drops the split of p alone
+    load_a_pairs(unused, a, p + kk, x + kk, ldp, g, t);
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      if (j < ns) {
+        FragB bf;
+        load_b_pairs(bf, kb, ldb, kk, 8 * (j0 + j), g, t);
+        mma_3xtf32(acc[j], a, bf);
+      }
+    }
+  }
+}
+
+// RW row-warps × CW column-warps; BK keys per tile; DC the widest column
+// chunk of k and v; NS the most 8-wide output column steps a warp owns;
+// MINB the blocks per SM the registers must allow (see the note at the
+// top). With CW = 1, d ≤ DC: one chunk holds the tile, and ds stays in
+// registers from phase 1 to phase 2.
+template <int RW, int CW, int BK, int DC, int NS, int MINB>
+__global__ void __launch_bounds__(RW * CW * 32, MINB)
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq,
+                    int nq, int nk, int d, float scale) {
+  constexpr int THREADS = RW * CW * 32;
+  constexpr int BQ = 16 * RW;
+  constexpr int NJ = BK / 8;  // 8-wide key steps of a tile
+  constexpr int LDP = BK + 8;
+  static_assert(BK % 8 == 0 && (CW == 1 || (CW % 2 == 0 &&
+                                            NJ % (CW / 2) == 0)),
+                "key tile");
+
+  const int ld = row_stride(d);
+  const int dc = dq_dc(d, DC);
+  const int ldc = dc + 4;
+  const int stage = dq_stage(d, BK, DC);
+  const int kr = dq_kr(d, BK, DC);
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);
+  float* do_s = q_s + BQ * ld;
+  float* ring = do_s + BQ * ld;
+  float* p_s = ring + 2 * stage;  // CW > 1 only
+  float* x_s = p_s + BQ * LDP;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int rw = warp / CW;
+  const int cw = warp % CW;
+
+  const int n_qt = (nq + BQ - 1) / BQ;
+  const int b = blockIdx.x / n_qt;
+  const int q0 = (blockIdx.x - b * n_qt) * BQ;
+  q += (int64_t)b * nq * d;
+  dout += (int64_t)b * nq * d;
+  dq += (int64_t)b * nq * d;
+  lse += (int64_t)b * nq;
+  delta += (int64_t)b * nq;
+  k += (int64_t)b * nk * d;
+  v += (int64_t)b * nk * d;
+
+  // the ring's sequence of loads: per key tile n_kc column chunks of k and
+  // v, then, where d > DC, n_rc chunks of kr key rows of k
+  const int n_kc = (d + dc - 1) / dc;
+  const int n_rc = n_kc > 1 ? BK / kr : 0;
+  const int per_tile = n_kc + n_rc;
+  const int n_tiles = (nk + BK - 1) / BK;
+  const int total = n_tiles * per_tile;
+
+  auto issue = [&](int i) {
+    float* dst = ring + (i & 1) * stage;
+    const int tile = i / per_tile;
+    const int r = i - tile * per_tile;
+    if (r < n_kc) {
+      const int c0 = r * dc;
+      const int w = min(dc, d - c0);
+      copy_rows_async<THREADS>(dst, ldc, k, tile * BK, BK, nk, d, c0, w);
+      copy_rows_async<THREADS>(dst + BK * ldc, ldc, v, tile * BK, BK, nk, d,
+                               c0, w);
+    } else {
+      copy_rows_async<THREADS>(dst, ld, k, tile * BK + (r - n_kc) * kr, kr,
+                               nk, d, 0, d);
+    }
+    cp_async_commit();
+  };
+  int next = 0;  // the load the block works on
+  // waits for load `next`, with load next + 1 put in flight first
+  auto acquire = [&]() -> const float* {
+    if (next + 1 < total) {
+      issue(next + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    return ring + (next & 1) * stage;
+  };
+  // every warp is done with load `next`: its stage may be refilled
+  auto release = [&]() {
+    __syncthreads();
+    ++next;
+  };
+
+  copy_rows_async<THREADS>(q_s, ld, q, q0, BQ, nq, d, 0, d);
+  copy_rows_async<THREADS>(do_s, ld, dout, q0, BQ, nq, d, 0, d);
+  issue(0);  // one group with q and do
+
+  // lse and δ of the thread's rows g and g + 8; 0 past nq, where q and do
+  // are zero-filled, so that ds = 1·(0 − 0) = 0 there
+  float lse_r[2], dl_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + rw * 16 + g + 8 * h;
+    lse_r[h] = row < nq ? lse[row] : 0.f;
+    dl_r[h] = row < nq ? delta[row] : 0.f;
+  }
+
+  // phase 2: the warp's 16 rows × the 8-wide output column steps
+  // [j0, j0 + ns) of dq
+  const int steps = d / 8;
+  const int per_warp = (steps + CW - 1) / CW;
+  const int j0 = cw * per_warp;
+  const int ns = max(0, min(per_warp, steps - j0));
+  const float* q_w = q_s + rw * 16 * ld;
+  const float* do_w = do_s + rw * 16 * ld;
+  float* p_w = p_s + rw * 16 * LDP;
+  float* x_w = x_s + rw * 16 * LDP;
+
+  float acc[NS][4];
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  }
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int k0 = tile * BK;
+    if constexpr (CW == 1) {
+      // phase 1: s = q·kᵀ and dp = do·vᵀ over the tile's BK keys, then in
+      // place p = exp(s·scale − lse) (0 by key column past nk) and
+      // ds = p∘(dp − δ)
+      const float* k_c = acquire();
+      const float* v_c = k_c + BK * ldc;
+      float s[NJ][4], ds[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = 0.f;
+          ds[j][e] = 0.f;
+        }
+      }
+      // unrolled (d ≤ DC, at most NS steps), so that a step's loads and
+      // splits are issued ahead of the previous step's MMAs: the walk is
+      // bound by latency, not by any unit's rate
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        if (8 * i >= d) break;
+        const int kk = 8 * i;
+        FragA aq, ado;
+        load_a(aq, q_w + kk, ld, g, t);
+        load_a(ado, do_w + kk, ld, g, t);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          FragB bf;
+          load_b_t(bf, k_c + (8 * j) * ldc + kk, ldc, g, t);
+          mma_3xtf32(s[j], aq, bf);
+          load_b_t(bf, v_c + (8 * j) * ldc + kk, ldc, g, t);
+          mma_3xtf32(ds[j], ado, bf);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const float pv = k0 + 8 * j + 2 * t + (e & 1) < nk
+                               ? expf(s[j][e] * scale - lse_r[h])
+                               : 0.f;
+          ds[j][e] = pv * (ds[j][e] - dl_r[h]);
+        }
+      }
+
+      // phase 2: dq += ds·k over the tile's keys, A the C fragment of ds
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        FragA a;
+        frag_a_from_c(a, ds[j]);
+#pragma unroll
+        for (int jj = 0; jj < NS; ++jj) {
+          if (jj < ns) {
+            FragB bf;
+            load_b_pairs(bf, k_c, ldc, 8 * j, 8 * jj, g, t);
+            mma_3xtf32(acc[jj], a, bf);
+          }
+        }
+      }
+      release();
+    } else {
+      // phase 1, one product a warp: the first CW/2 column-warps of a
+      // row-warp compute s = q·kᵀ and write p = exp(s·scale − lse) (0 past
+      // nk), the others dp = do·vᵀ and write dp − δ, each over NX 8-key
+      // steps, the columns passing in n_kc chunks
+      constexpr int NX = NJ / (CW / 2);
+      const bool is_s = cw < CW / 2;
+      const int xc0 = (cw % (CW / 2)) * NX * 8;
+      const float* a_w = is_s ? q_w : do_w;
+      float x[NX][4];
+#pragma unroll
+      for (int j = 0; j < NX; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[j][e] = 0.f;
+      }
+      const float* st = nullptr;
+      for (int kc = 0; kc < n_kc; ++kc) {
+        st = acquire();
+        const float* b_c = st + (is_s ? 0 : BK * ldc);
+        const int c0 = kc * dc;
+        const int w = min(dc, d - c0);
+#pragma unroll 4
+        for (int kk = 0; kk < w; kk += 8) {
+          FragA af;
+          load_a(af, a_w + c0 + kk, ld, g, t);
+#pragma unroll
+          for (int j = 0; j < NX; ++j) {
+            FragB bf;
+            load_b_t(bf, b_c + (xc0 + 8 * j) * ldc + kk, ldc, g, t);
+            mma_3xtf32(x[j], af, bf);
+          }
+        }
+        if (n_kc > 1) release();
+      }
+      float* out_w = is_s ? p_w : x_w;
+#pragma unroll
+      for (int j = 0; j < NX; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = xc0 + 8 * j + 2 * t;
+          float v0 = x[j][2 * h];
+          float v1 = x[j][2 * h + 1];
+          if (is_s) {
+            v0 = k0 + c < nk ? expf(v0 * scale - lse_r[h]) : 0.f;
+            v1 = k0 + c + 1 < nk ? expf(v1 * scale - lse_r[h]) : 0.f;
+          } else {
+            v0 -= dl_r[h];
+            v1 -= dl_r[h];
+          }
+          *reinterpret_cast<float2*>(out_w + (g + 8 * h) * LDP + c) =
+              make_float2(v0, v1);
+        }
+      }
+
+      // phase 2: dq += ds·k, ds = p∘(dp − δ) formed as it is read; k from
+      // the stage that still holds the tile, or in chunks of kr key rows
+      if (n_kc == 1) {
+        __syncthreads();  // p and dp − δ are written
+        dq_accum(acc, p_w, x_w, LDP, st, ldc, BK, j0, ns, g, t);
+        release();
+      } else {
+        for (int rc = 0; rc < n_rc; ++rc) {
+          const float* k_r = acquire();  // also publishes p and dp − δ
+          dq_accum(acc, p_w + rc * kr, x_w + rc * kr, LDP, k_r, ld, kr, j0,
+                   ns, g, t);
+          release();
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + rw * 16 + g + 8 * h;
+    if (row >= nq) continue;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      if (j < ns) {
+        *reinterpret_cast<float2*>(dq + (int64_t)row * d + 8 * (j0 + j) +
+                                   2 * t) =
+            make_float2(acc[j][2 * h] * scale, acc[j][2 * h + 1] * scale);
+      }
+    }
+  }
+}
+
 // ------------------------------------------------------------- launchers
 
 bool shape_ok(int batch, int nq, int nk, int d, int max_d) {
   return batch >= 1 && nq >= 1 && nk >= 1 && d >= 8 && d <= max_d &&
          d % 8 == 0;
-}
-
-int64_t grid_for(int batch, int n) {
-  return (int64_t)batch * ((n + TILE - 1) / TILE);
 }
 
 // Sets the kernel's dynamic shared memory limit and launches it; returns
@@ -1119,13 +1252,16 @@ int fwd_launch(const float* q, const float* k, const float* v, float* o,
                 scale);
 }
 
-template <int NG>
-int dq_ng(const float* q, const float* k, const float* v, const float* dout,
-          const float* lse, const float* delta, float* dq, int batch, int nq,
-          int nk, int d, float scale, void* stream) {
-  return launch(flash_bwd_dq_kernel<DQ_R, NG>, threads_for(DQ_R),
-                grid_for(batch, nq), dq_smem(d), stream, q, k, v, dout, lse,
-                delta, dq, nq, nk, d, scale);
+template <int RW, int CW, int BK, int DC, int NS, int MINB>
+int dq_launch(const float* q, const float* k, const float* v,
+              const float* dout, const float* lse, const float* delta,
+              float* dq, int batch, int nq, int nk, int d, float scale,
+              void* stream) {
+  if (CW == 1 && d > DC) return (int)cudaErrorInvalidValue;
+  const int64_t blocks = (int64_t)batch * ((nq + 16 * RW - 1) / (16 * RW));
+  return launch(flash_bwd_dq_kernel<RW, CW, BK, DC, NS, MINB>, RW * CW * 32,
+                blocks, dq_smem<RW, CW, BK, DC>(d), stream, q, k, v, dout,
+                lse, delta, dq, nq, nk, d, scale);
 }
 
 // K3b over ⌈nq / rows_per_split⌉ splits of the query walk. One split
@@ -1193,21 +1329,6 @@ int dkv_blocks_per_sm(int d) {
    : (d) <= 128 ? FN<4, 2, 32, 8, 2>(__VA_ARGS__)            \
                 : FN<2, 4, 32, 8, 1>(__VA_ARGS__))
 
-// NG = ceil(d / 32) float4 column groups per thread, a template argument
-// so the accumulators stay in registers.
-#define SALUN_DISPATCH_NG(d, FN, ...)        \
-  switch (((d) + 31) / 32) {                 \
-    case 1: return FN<1>(__VA_ARGS__);       \
-    case 2: return FN<2>(__VA_ARGS__);       \
-    case 3: return FN<3>(__VA_ARGS__);       \
-    case 4: return FN<4>(__VA_ARGS__);       \
-    case 5: return FN<5>(__VA_ARGS__);       \
-    case 6: return FN<6>(__VA_ARGS__);       \
-    case 7: return FN<7>(__VA_ARGS__);       \
-    case 8: return FN<8>(__VA_ARGS__);       \
-    default: return (int)cudaErrorInvalidValue; \
-  }
-
 }  // namespace
 
 // Plain C entry points (bound with ctypes). Each launches on `stream`,
@@ -1252,13 +1373,33 @@ extern "C" int salun_flash_bwd_dq(const void* q, const void* k,
   if (!shape_ok(batch, nq, nk, d, MAX_D_BWD)) {
     return (int)cudaErrorInvalidValue;
   }
-  SALUN_DISPATCH_NG(d, dq_ng, static_cast<const float*>(q),
-                    static_cast<const float*>(k),
-                    static_cast<const float*>(v),
-                    static_cast<const float*>(dout),
-                    static_cast<const float*>(lse),
-                    static_cast<const float*>(delta), static_cast<float*>(dq),
-                    batch, nq, nk, d, scale, stream)
+  const float* qp = static_cast<const float*>(q);
+  const float* kp = static_cast<const float*>(k);
+  const float* vp = static_cast<const float*>(v);
+  const float* dop = static_cast<const float*>(dout);
+  const float* lp = static_cast<const float*>(lse);
+  const float* dlp = static_cast<const float*>(delta);
+  float* dqp = static_cast<float*>(dq);
+  // row-warps, column-warps, keys per tile, widest column chunk, most
+  // column steps per warp, blocks per SM (see the note at the top)
+  if (d <= 40) {
+    return dq_launch<4, 1, 32, 64, 5, 4>(qp, kp, vp, dop, lp, dlp, dqp,
+                                         batch, nq, nk, d, scale, stream);
+  }
+  if (d <= 64) {
+    return dq_launch<4, 1, 32, 64, 8, 3>(qp, kp, vp, dop, lp, dlp, dqp,
+                                         batch, nq, nk, d, scale, stream);
+  }
+  if (d <= 128) {
+    return dq_launch<4, 2, 32, 128, 8, 2>(qp, kp, vp, dop, lp, dlp, dqp,
+                                          batch, nq, nk, d, scale, stream);
+  }
+  if (nq <= 16) {
+    return dq_launch<1, 4, 32, 256, 8, 1>(qp, kp, vp, dop, lp, dlp, dqp,
+                                          batch, nq, nk, d, scale, stream);
+  }
+  return dq_launch<2, 4, 32, 64, 8, 2>(qp, kp, vp, dop, lp, dlp, dqp, batch,
+                                       nq, nk, d, scale, stream);
 }
 
 // K3b: dk, dv [B, Nk, D] from the same inputs. The query walk is cut

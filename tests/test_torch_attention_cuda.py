@@ -7,16 +7,17 @@ card's machine run ``python -m pytest tests/test_torch_attention_cuda.py
 -m cuda --noconftest -p no:cacheprovider``.
 
 Tolerance: both sides compute to about fp32 precision (TF32 off for the
-plain versions), but sum in other orders. K2 and K3b multiply on the
-tensor cores in 3xTF32 (each operand split into two TF32 parts, three
+plain versions), but sum in other orders. K2, K3a and K3b multiply on
+the tensor cores in 3xTF32 (each operand split into two TF32 parts, three
 products summed in fp32: about 22 of fp32's 24 bits), K2 over 64-wide key
-tiles with an online softmax, K3b over 32- or 64-wide query tiles, split
-over blocks where the grid is small; K3a uses sequential fp32 FMAs over
-32-wide tiles; the plain versions cuBLAS SGEMM over materialised scores.
-They differ by about 1e-6 of the largest value here. The bound ``1e-4 ·
-max(1, max|want|)`` leaves 100× room and still fails plain TF32 (~5e-4
-relative) or any indexing fault (O(1)); the K2 and K3b width tests also
-hold 3xTF32 to 2e-5.
+tiles with an online softmax, K3a over 32-wide key tiles, K3b over 32- or
+64-wide query tiles, split over blocks where the grid is small; the plain
+versions cuBLAS SGEMM over materialised scores. They differ by about 1e-6
+of the largest value for K2 and by up to about 1.5e-5 for K3a and K3b,
+whose ds = p∘(dp − δ) cancels. The bound ``1e-4 · max(1, max|want|)``
+leaves 5× room over that and still fails plain TF32 (~5e-4 relative) or
+any indexing fault (O(1)); the K2, K3a and K3b width tests also hold
+3xTF32 to 2e-5.
 """
 
 import pytest
@@ -213,6 +214,52 @@ def test_k3b_is_bitwise_deterministic_on_card(cuda, shape):
     second = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, d ** -0.5)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (2, 33, 77, 8), (2, 77, 33, 40), (2, 33, 77, 64), (2, 77, 33, 80),
+    (2, 33, 77, 128), (2, 77, 33, 160), (2, 33, 77, 256),
+    (3, 16, 16, 256),  # the DDPM mid block: Nq below a 32-row tile
+    (2, 5, 77, 40), (2, 9, 77, 160),  # Nq below a tile, Nk = 77
+    (2, 300, 77, 80), (2, 130, 77, 256),  # SD cross-attention's Nk
+    (2, 100, 1, 40), (2, 70, 1, 80), (1, 40, 1, 256),  # Nk = 1
+], ids=str)
+def test_k3a_every_width_matches_plain_on_card(cuda, shape):
+    """K3a at every head width it instantiates (D ≤ 40, ≤ 64, ≤ 128, ≤ 256
+    in 64-column chunks, and 16 rows a block at Nq ≤ 16 above 128) and
+    D = 8, 80, 160 inside them, ragged Nq ≠ Nk, Nq below a tile, Nk = 1
+    and 77: one counted launch, within 1e-4 and, as 3xTF32 keeps about
+    22 bits, within 2e-5 of the largest value."""
+    b, nq, nk, d = shape
+    q, k, v, do = _inputs(cuda, b, nq, nk, d, seed=8)
+    scale = d ** -0.5
+    want_o, lse = fa.flash_attention_fwd_reference(q, k, v, scale)
+    delta = (do * want_o).sum(-1)
+    before = fa.flash_attention_bwd_dq.launches
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
+    want = fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
+                                               scale)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd_dq.launches == before + 1
+    _close(dq, want)
+    _close(dq, want, tol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(128, 256, 256, 256), (32, 4096, 4096, 40),
+                                   (128, 16, 16, 256)], ids=str)
+def test_k3a_is_bitwise_deterministic_on_card(cuda, shape):
+    """No atomics, a fixed summation order: two launches on the same inputs
+    give the same dq, bit for bit."""
+    b, nq, nk, d = shape
+    q, k, v, do = _inputs(cuda, b, nq, nk, d, seed=9)
+    lse = torch.randn(b, nq, device=cuda).abs() + 3.0
+    delta = torch.randn(b, nq, device=cuda)
+    first = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, d ** -0.5)
+    second = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, d ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
