@@ -30,13 +30,16 @@ Phases, each of which fails the script (exit code 1) when it fails:
    plain version's time and, for K2/K3, the time of
    ``torch.nn.functional.scaled_dot_product_attention`` (forward; backward
    through autograd) on the same tensors, as a yardstick only. K4 and K4b
-   (fused GroupNorm + SiLU forward and backward) against their plain
-   versions at the SD path's [B, C, H, W] (U-Net [8, 320, 64, 64],
-   [4, 640, 64, 64], [4, 2560, 8, 8] at eps 1e-5; VAE [4, 128, 512, 512]
+   (fused GroupNorm + SiLU forward and backward, one cluster launch each)
+   against their plain versions at the SD path's [B, C, H, W] (U-Net [8,
+   320, 64, 64], [4, 640, 64, 64], [4, 2560, 8, 8], [4, 320, 64, 64], [4,
+   960, 64, 64], [4, 1920, 32, 32] at eps 1e-5; VAE [4, 128, 512, 512]
    and [4, 256, 512, 512] at eps 1e-6) and ragged ones, failing above
-   1e-5 (forward) and 1e-4 (backward) × max(1, max|plain|); times, the
-   bytes bound and, as the yardstick, ``F.group_norm`` then ``F.silu``
-   (two calls; their autograd backward for K4b). K2 at the SD U-Net's
+   1e-5 (forward) and 1e-4 (backward) × max(1, max|plain|) and unless two
+   launches give bitwise equal outputs; times, the bytes bound, achieved
+   GB/s, the plan's path and cluster and, as the yardstick,
+   ``F.group_norm`` then ``F.silu`` (two calls; their autograd backward
+   for K4b). K2 at the SD U-Net's
    self- and cross-attention shapes ([32, N, N or 77, D] for N = 4096,
    1024, 256, 64 and D = 40, 80, 160, 160) with K3a/K3b there, and K2 at
    the VAE's D = 512 ([4, 4096, 4096, 512]). Saliency masks on the card
@@ -79,7 +82,10 @@ Phases, each of which fails the script (exit code 1) when it fails:
    included); losses finite; images in [0, 1], every PNG written. Prints
    the mask-generation seconds, ms per random_label step over steps 2–8
    (and the attention kernels' share of it at the phase-3 times) and the
-   sampling seconds with K2's share of a sampling row.
+   sampling seconds with K2's share of a sampling row; then K4's and K4b's
+   share of the step and of a sampling row: both kernels and the library
+   pair timed at every GroupNormSiLU shape of a seeded full-width U-Net
+   and VAE (forward hooks), times their launches.
 7. A ``{"kernels": [...]}`` line (launches per path and in all), the
    card's name and power limit, and as the last line ``{"ok": true,
    "device": {...}}``.
@@ -135,11 +141,15 @@ DDPM_SAMPLES, DDPM_STEPS, DDPM_CLASSES = 16, 50, (0, 1)
 
 # K4/K4b: the SD path's [B, C, H, W] (the U-Net's level 0 at the CFG-
 # doubled bs 4 of mask generation, the 640-channel concat of
-# output_blocks.10-11 and the bottom at bs 4, the VAE's two largest planes
-# at bs 4) and ragged ones, each with (groups, eps)
+# output_blocks.10-11 and the bottom at bs 4, random_label's own bs-4
+# level 0, the 960-channel concat of output_blocks.9 (the largest slab the
+# kernels keep in a cluster's shared memory) and output_blocks.6's 1920
+# channels at 32x32, the VAE's two largest planes at bs 4) and ragged ones,
+# each with (groups, eps)
 GN_PATH = [((8, 320, 64, 64), 32, 1e-5), ((4, 640, 64, 64), 32, 1e-5),
-           ((4, 2560, 8, 8), 32, 1e-5), ((4, 128, 512, 512), 32, 1e-6),
-           ((4, 256, 512, 512), 32, 1e-6)]
+           ((4, 2560, 8, 8), 32, 1e-5), ((4, 320, 64, 64), 32, 1e-5),
+           ((4, 960, 64, 64), 32, 1e-5), ((4, 1920, 32, 32), 32, 1e-5),
+           ((4, 128, 512, 512), 32, 1e-6), ((4, 256, 512, 512), 32, 1e-6)]
 GN_RAGGED = [((3, 6, 5, 7), 3, 1e-5), ((2, 32, 50, 100), 32, 1e-5),
              ((2, 32, 1, 1), 32, 1e-6)]
 GN_TOL = (1e-5, 1e-4)  # forward, backward: × max(1, max|plain|)
@@ -499,7 +509,13 @@ def groupnorm_vs_plain(device):
             log(f"{name} {list(shape)} G {groups} eps {eps}: max abs err "
                 f"{max(errs):.3e} (y/dx, then mean, rstd or dscale, dbias: "
                 f"{', '.join(f'{e:.3e}' for e in errs)})")
-        del want, want_g, grads
+        again = (gn.groupnorm_silu(x, w, bias, groups, eps)
+                 + gn.groupnorm_silu_backward(dy, x, w, bias, mean, rstd,
+                                              groups))
+        if not all(torch.equal(a, b) for a, b in zip((y, mean, rstd)
+                                                     + grads, again)):
+            fail(f"K4/K4b launched twice at {list(shape)} differ")
+        del want, want_g, grads, again
         if (shape, groups, eps) not in GN_PATH:
             continue
         xl, wl, bl = (t.clone().requires_grad_() for t in (x, w, bias))
@@ -520,6 +536,8 @@ def groupnorm_vs_plain(device):
                                     adaptive_ms(library))
             n_bytes, n_ops = _gn_work(shape, groups, name == "K4b")
             bound_ms, bound_by = _bound(n_bytes, n_ops)
+            plan = gn._plan(shape[0], c, math.prod(shape[2:]), groups,
+                            name == "K4b")
             rows.append({"name": name, "shape": list(shape), "ms": ms,
                          "plain_ms": plain_ms, "library_ms": lib_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by})
@@ -528,9 +546,12 @@ def groupnorm_vs_plain(device):
                 f"{', autograd backward' if name == 'K4b' else ''}) "
                 f"{lib_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
                 f"{n_bytes / 1e6:.1f} MB; {n_bytes / ms / 1e6:.1f} GB/s "
-                f"achieved)")
+                f"achieved); {plan.path}, cluster {plan.cluster}, "
+                f"{plan.smem} B shared a block")
         del lib_out, xl, wl, bl
     torch.cuda.empty_cache()
+    log("K4/K4b launched twice give bitwise equal y, mean, rstd, dx, "
+        "dscale and dbias at every shape")
     entries = []
     for name, full, line in (("K4", "K4 groupnorm_silu", ":23"),
                              ("K4b", "K4b groupnorm_silu_backward", ":144")):
@@ -994,6 +1015,117 @@ def sd_step_attention_ms(cfg, rows) -> tuple:
     return 3 * vae + n_fwd * fwd, 2 * k3a, 2 * k3b, fwd, vae
 
 
+def sd_gn_sites(cfg, device) -> dict:
+    """The [B, C, H, W] and eps of every K4 launch of one U-Net forward at
+    bs ``SD_BS`` (``unet``; ``remat``: those the remat recompute repeats,
+    all but ``out``), one VAE encode at bs ``SD_BS`` (``enc``) and one
+    decode of ``SD_SAMPLES`` latents (``dec``), read by forward hooks on
+    the ``GroupNormSiLU`` modules of seeded full-width models."""
+    import torch
+
+    from salun_torch.kernels.groupnorm_silu import GroupNormSiLU
+    from salun_torch.sd.unet import SDUNet
+    from salun_torch.sd.vae import AutoencoderKL
+
+    sites = {"unet": [], "remat": [], "enc": [], "dec": []}
+
+    def hook_all(model, key):
+        for name, m in model.named_modules():
+            if isinstance(m, GroupNormSiLU):
+                keys = [key] + (["remat"] if key == "unet" and not
+                                name.startswith("out.") else [])
+
+                def record(mod, inp, out, keys=keys):
+                    for k in keys:
+                        sites[k].append((tuple(inp[0].shape), mod.eps))
+
+                m.register_forward_hook(record)
+
+    torch.manual_seed(6)
+    side = SD_IMAGE // 8
+    with torch.device(device), torch.no_grad():
+        unet = SDUNet(cfg.unet)
+        hook_all(unet, "unet")
+        unet(torch.randn(SD_BS, cfg.unet.in_channels, side, side),
+             torch.full((SD_BS,), 500.0),
+             torch.randn(SD_BS, cfg.clip.max_length, cfg.unet.context_dim))
+        del unet
+        vae = AutoencoderKL(cfg.vae)
+        hook_all(vae.encoder, "enc")
+        hook_all(vae.decoder, "dec")
+        vae.encode_moments(torch.randn(SD_BS, 3, SD_IMAGE, SD_IMAGE))
+        vae.decode(torch.randn(SD_SAMPLES, cfg.vae.embed_dim, side, side))
+        del vae
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return sites
+
+
+def sd_gn_ms(sites, ms, n_ddim: int) -> tuple:
+    """(K4, K4b) ms of one random_label step (three VAE encodes, three
+    U-Net forwards plus the remat recompute of two, two backwards) and
+    the K4 ms of a sampling row (``n_ddim`` CFG forwards, one decode),
+    from ``ms[(name, shape, eps)]`` at every site."""
+    def total(name, key):
+        return sum(ms[(name, shape, eps)] for shape, eps in sites[key])
+
+    k4 = (3 * total("K4", "enc") + 3 * total("K4", "unet")
+          + 2 * total("K4", "remat"))
+    return k4, 2 * total("K4b", "unet"), (n_ddim * total("K4", "unet")
+                                          + total("K4", "dec"))
+
+
+def sd_gn_share(cfg, device, expect, step_ms: float, row_ms: float,
+                n_ddim: int) -> None:
+    """K4's and K4b's share of a random_label step and of a sampling row:
+    each kernel and the library pair (``F.group_norm`` + ``F.silu``; their
+    autograd backward) timed at every shape the sites give, times its
+    launches. ``expect`` holds the launch counts the sites must match."""
+    import torch
+    import torch.nn.functional as F
+
+    from salun_torch.kernels import groupnorm_silu as gn
+
+    sites = sd_gn_sites(cfg, device)
+    got = {k: len(v) for k, v in sites.items()}
+    if got != expect:
+        fail(f"GroupNormSiLU sites {got}, the path implies {expect}")
+    ms = {}
+    gen = torch.Generator(device=device).manual_seed(7)
+    for shape, eps in sorted({s for v in sites.values() for s in v}):
+        c = shape[1]
+        x = torch.randn(shape, generator=gen, device=device)
+        dy = torch.randn(shape, generator=gen, device=device)
+        w = 1.0 + 0.3 * torch.randn(c, generator=gen, device=device)
+        b = 0.3 * torch.randn(c, generator=gen, device=device)
+        _, mean, rstd = gn.groupnorm_silu(x, w, b, 32, eps)
+        xl, wl, bl = (t.clone().requires_grad_() for t in (x, w, b))
+        lib_out = F.silu(F.group_norm(xl, 32, wl, bl, eps))
+        ms[("K4", shape, eps)] = adaptive_ms(
+            lambda: gn.groupnorm_silu(x, w, b, 32, eps), 40.0)
+        ms[("K4b", shape, eps)] = adaptive_ms(
+            lambda: gn.groupnorm_silu_backward(dy, x, w, b, mean, rstd, 32),
+            40.0)
+        ms[("lib", shape, eps)] = adaptive_ms(
+            lambda: F.silu(F.group_norm(x, 32, w, b, eps)), 40.0)
+        ms[("libb", shape, eps)] = adaptive_ms(
+            lambda: torch.autograd.grad(lib_out, (xl, wl, bl), dy,
+                                        retain_graph=True), 40.0)
+        del x, dy, lib_out, xl
+    k4, k4b, row = sd_gn_ms(sites, ms, n_ddim)
+    lib = {("K4", s, e): ms[("lib", s, e)] for _, s, e in ms}
+    lib.update({("K4b", s, e): ms[("libb", s, e)] for _, s, e in ms})
+    lk4, lk4b, lrow = sd_gn_ms(sites, lib, n_ddim)
+    log(f"random_label step: K4 {k4:.3f} ms + K4b {k4b:.3f} ms = "
+        f"{k4 + k4b:.3f} ms of {step_ms:.3f} ms "
+        f"({100 * (k4 + k4b) / step_ms:.1f}%) at {len(ms) // 4} shapes "
+        f"timed here ({3 * got['enc'] + 3 * got['unet'] + 2 * got['remat']}"
+        f" K4, {2 * got['unet']} K4b launches); F.group_norm + F.silu "
+        f"there: {lk4:.3f} + {lk4b:.3f} = {lk4 + lk4b:.3f} ms. Sampling "
+        f"row: K4 {row:.3f} ms of {row_ms:.3f} ms "
+        f"({100 * row / row_ms:.1f}%; library pair {lrow:.3f} ms)")
+
+
 def sd_path(device, attn_rows) -> dict:
     """The SD SalUn chain through the port's three CLIs; returns the
     launch counts of the whole chain."""
@@ -1191,6 +1323,9 @@ def sd_path(device, attn_rows) -> dict:
     log(f"sampling row: K2 {row_k2:.3f} ms ({n_ddim} x {fwd_ms:.3f} ms "
         f"per U-Net forward + the decode's) of {row_ms:.3f} ms "
         f"({100 * row_k2 / row_ms:.1f}%) at the phase-3 times")
+    sd_gn_share(cfg, device, {"unet": k4_fwd, "remat": k4_re,
+                              "enc": vae_k4["enc"], "dec": vae_k4["dec"]},
+                step_ms, row_ms, n_ddim)
     total = {k: sum(g[k] for g in got.values()) for k in names}
     shutil.rmtree(work, ignore_errors=True)
     return total

@@ -147,3 +147,131 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
         w = torch.ones(32)
     with pytest.raises((TypeError, ValueError)):
         gn.groupnorm_silu(x, w, b, groups, 1e-5)
+
+
+# ------------------------------------------------------------ the plan
+
+# Every GroupNormSiLU input of the SD v1 U-Net ([C, H, W] at 64×64
+# latents) and of the VAE at 512×512 (encoder and decoder)
+UNET_CHW = [(320, 64, 64), (640, 64, 64), (960, 64, 64), (320, 32, 32),
+            (640, 32, 32), (960, 32, 32), (1280, 32, 32), (1920, 32, 32),
+            (640, 16, 16), (1280, 16, 16), (1920, 16, 16), (2560, 16, 16),
+            (1280, 8, 8), (2560, 8, 8)]
+VAE_512_CHW = [(128, 512, 512), (256, 512, 512)]
+VAE_OTHER_CHW = [(512, 64, 64), (512, 128, 128), (256, 256, 256),
+                 (512, 256, 256), (128, 256, 256)]
+
+
+def _slices(plan, n, s):
+    """The slices ``[lo, hi)`` of a slab of n values in planes of s, as
+    ``geometry`` in ``groupnorm_silu.cu`` cuts them."""
+    k, vec = plan.cluster, plan.path != "scalar"
+    if vec and s < gn.UNIT and gn.UNIT % s == 0:  # whole planes
+        start = [r * (n // s) // k * s for r in range(k + 1)]
+    else:
+        start = [(r * (n // 4) // k * 4 if vec else r * n // k)
+                 for r in range(k + 1)]
+    return list(zip(start[:-1], start[1:]))
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["K4", "K4b"])
+@pytest.mark.parametrize("batch", [4, 8])
+@pytest.mark.parametrize("chw", UNET_CHW, ids=str)
+def test_plan_keeps_every_unet_slab_resident(chw, batch, backward):
+    c, h, w = chw
+    plan = gn._plan(batch, c, h * w, 32, backward)
+    assert plan.path == "resident"
+    assert plan.cap == plan.slice
+    assert 1 <= plan.cluster <= 16
+    assert plan.smem <= 232_448 - 1024 < gn.SMEM_MAX == 232_448
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["K4", "K4b"])
+@pytest.mark.parametrize("chw", VAE_512_CHW, ids=str)
+def test_plan_streams_the_vae_512_slabs(chw, backward):
+    c, h, w = chw
+    plan = gn._plan(4, c, h * w, 32, backward)
+    assert plan.path == "streamed"
+    assert plan.cluster == 16
+    assert 0 < plan.cap < plan.slice and plan.cap % 4 == 0
+    assert plan.smem <= gn.SMEM_DYN
+    # the resident share of the slice is kept, the rest read twice
+    hbm = (2 * plan.slice + (plan.slice - plan.cap)) / plan.slice
+    assert hbm <= 3.0
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["K4", "K4b"])
+@pytest.mark.parametrize("chw", VAE_OTHER_CHW, ids=str)
+def test_plan_of_the_other_vae_slabs_fits(chw, backward):
+    c, h, w = chw
+    plan = gn._plan(4, c, h * w, 32, backward)
+    assert plan.path in ("resident", "streamed")
+    assert plan.smem <= gn.SMEM_DYN and plan.cluster <= 16
+    slab_bytes = (8 if backward else 4) * (c // 32) * h * w
+    if slab_bytes <= 16 * gn.SLICE_TARGET // 2:  # fits with room to spare
+        assert plan.path == "resident"
+
+
+@pytest.mark.parametrize("case", [
+    (3, 6, 35, 3, True),      # S = 35
+    (2, 32, 5000, 32, True),  # S = 50 x 100 is a multiple of 4: vector
+    (2, 32, 1, 32, True),     # S = 1
+    (2, 64, 256, 32, False),  # a pointer off a 16-byte boundary
+], ids=str)
+@pytest.mark.parametrize("backward", [False, True], ids=["K4", "K4b"])
+def test_plan_scalar_path_for_ragged_or_unaligned(case, backward):
+    b, c, s, groups, aligned = case
+    plan = gn._plan(b, c, s, groups, backward, aligned)
+    scalar = s % 4 != 0 or not aligned
+    assert (plan.path == "scalar") == scalar
+    if scalar:  # nothing resident: w and b, and K4b's per-unit sums
+        assert plan.cap == 0
+        affine = 8 * (c // groups)
+        assert (plan.smem > affine) == backward and plan.smem >= affine
+        assert plan.smem <= gn.SMEM_DYN
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["K4", "K4b"])
+@pytest.mark.parametrize("shape", [
+    (8, 320, 4096, 32), (4, 960, 4096, 32), (4, 1920, 1024, 32),
+    (4, 2560, 64, 32), (4, 2560, 256, 32), (4, 128, 262144, 32),
+    (4, 256, 262144, 32), (2, 64, 16, 32),
+    (3, 6, 35, 3), (2, 32, 5000, 32), (2, 32, 1, 32), (1, 1, 1, 1),
+    (1, 96, 12, 32), (2, 64, 4, 1),
+], ids=str)
+def test_plan_slices_cover_the_slab_once(shape, backward):
+    b, c, s, groups = shape
+    plan = gn._plan(b, c, s, groups, backward)
+    n = c // groups * s
+    slices = _slices(plan, n, s)
+    assert slices[0][0] == 0 and slices[-1][1] == n
+    for (lo, hi), (lo2, _) in zip(slices, slices[1:]):
+        assert lo <= hi == lo2  # contiguous, no overlap
+    for lo, hi in slices:
+        assert hi - lo <= plan.slice
+        if plan.path != "scalar":
+            assert lo % 4 == 0
+            if s < gn.UNIT and gn.UNIT % s == 0:
+                assert lo % s == 0  # a packed unit holds whole planes
+        if hi > lo:  # planes the slice touches fit K4b's scratch
+            assert (hi - 1) // s - lo // s + 1 <= plan.pmax
+    if plan.path == "resident":
+        assert max(hi - lo for lo, hi in slices) <= plan.cap
+
+
+@pytest.mark.parametrize("bad", ["dy_bf16", "mean_shape", "rstd_strided",
+                                 "dy_shape"])
+def test_backward_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    x, w, b = torch.zeros(2, 64, 4, 4), torch.ones(64), torch.zeros(64)
+    dy = torch.zeros(2, 64, 4, 4)
+    mean, rstd = torch.zeros(2, 32), torch.ones(2, 32)
+    if bad == "dy_bf16":
+        dy = dy.bfloat16()
+    elif bad == "mean_shape":
+        mean = torch.zeros(2, 16)
+    elif bad == "rstd_strided":
+        rstd = torch.ones(32, 2).t()
+    else:
+        dy = torch.zeros(2, 64, 16)
+    with pytest.raises((TypeError, ValueError)):
+        gn.groupnorm_silu_backward(dy, x, w, b, mean, rstd, 32)

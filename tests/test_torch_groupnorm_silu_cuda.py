@@ -7,12 +7,15 @@ card's machine run ``python -m pytest tests/test_torch_groupnorm_silu_cuda.py
 -m cuda --noconftest -p no:cacheprovider``.
 
 Tolerances: both sides compute in fp32 but sum in other orders (the
-kernels: per-chunk two-pass sums merged by Chan's formula; the plain
-versions: torch's reductions), so they differ by fp32 rounding of sums of
-up to 2M terms. Forward 1e-5 · max(1, max|want|) (outputs are O(1)); the
+kernels: a two-pass (count, mean, M2) per unit of ≤ 512 values, merged by
+Chan's formula in unit, warp and cluster-rank order; dscale/dbias per
+plane in unit order, then over ranks and batch; the plain versions:
+torch's reductions), so they differ by fp32 rounding of sums of up to 2M
+terms. Forward 1e-5 · max(1, max|want|) (outputs are O(1)); the
 backward's dscale/dbias are sums over batch and space of O(1) terms, so
 1e-4 · max(1, max|want|) on every output. Both fail an indexing fault
-(O(1)) or a lost chunk.
+(O(1)) or a lost unit. Every sum has a fixed order, so two launches give
+the same bits.
 """
 
 import pytest
@@ -21,17 +24,31 @@ import torch
 from salun_torch.kernels import groupnorm_silu as gn
 from salun_torch.utils.device import set_tf32
 
+
+def _cluster_edge(hw, backward):
+    """The largest gc < 256 at which ``_plan`` cuts a slab (batch 2, 32
+    groups of gc planes of hw values) over fewer blocks than at gc + 1."""
+    ks = [gn._plan(2, 32 * gc, hw, 32, backward).cluster
+          for gc in range(1, 257)]
+    return max(gc for gc in range(1, 256) if ks[gc] > ks[gc - 1])
+
+
 # (B, C, H, W, groups, eps)
 SHAPES = [
     (8, 320, 64, 64, 32, 1e-5),    # SD U-Net level 0, CFG-doubled bs 4
     (4, 2560, 8, 8, 32, 1e-5),     # U-Net bottom (output_blocks.0)
+    (4, 960, 64, 64, 32, 1e-5),    # the largest resident slab
+    (4, 1920, 32, 32, 32, 1e-5),   # output_blocks.6 at bs 4
     (4, 128, 512, 512, 32, 1e-6),  # VAE encoder level 0
     (1, 256, 512, 512, 32, 1e-6),  # 2,097,152-value groups (gc 8)
     (2, 32, 50, 100, 32, 1e-5),    # plane of 5,000: a ragged last chunk
     (3, 6, 5, 7, 3, 1e-5),         # S = 35: the scalar path
     (2, 32, 1, 1, 32, 1e-6),       # gc = 1, H = W = 1
     (1, 1, 1, 1, 1, 1e-5),
-]
+] + [  # one plane under and one over a cluster-size edge, each way
+    (2, 32 * gc, 32, 32, 32, 1e-5)
+    for edge in (_cluster_edge(1024, False), _cluster_edge(1024, True))
+    for gc in (edge, edge + 1)]
 
 
 @pytest.fixture
@@ -93,13 +110,20 @@ def test_k4_and_k4b_match_plain_on_card(cuda, shape):
 
 
 @pytest.mark.cuda
-def test_unaligned_input_takes_the_scalar_path(cuda):
-    """A contiguous view 4 bytes past a 16-byte boundary: same results."""
-    x, weight, bias, dy = _inputs(cuda, 2, 64, 16, 16, offset=1)
-    assert x.data_ptr() % 16
+@pytest.mark.parametrize("shape", [(2, 64, 16, 16), (2, 640, 64, 64),
+                                   (1, 128, 512, 512)], ids=str)
+def test_unaligned_input_takes_the_scalar_path(cuda, shape):
+    """A contiguous view 4 bytes past a 16-byte boundary, at a shape that
+    is otherwise resident (one block; a cluster) or streamed: same
+    results, on the scalar path."""
+    b, c, h, w = shape
+    x, weight, bias, dy = _inputs(cuda, b, c, h, w, offset=1)
+    assert x.data_ptr() % 16 and dy.data_ptr() % 16
+    assert gn._plan(b, c, h * w, 32, False, False).path == "scalar"
     y, mean, rstd = gn.groupnorm_silu(x, weight, bias, 32, 1e-5)
-    _close(y, gn.groupnorm_silu_reference(x, weight, bias, 32, 1e-5)[0],
-           1e-5)
+    want = gn.groupnorm_silu_reference(x, weight, bias, 32, 1e-5)
+    for g, wnt in zip((y, mean, rstd), want):
+        _close(g, wnt, 1e-5)
     got = gn.groupnorm_silu_backward(dy, x, weight, bias, mean, rstd, 32)
     want = gn.groupnorm_silu_backward_reference(dy, x, weight, bias, mean,
                                                 rstd, 32)
@@ -107,14 +131,36 @@ def test_unaligned_input_takes_the_scalar_path(cuda):
         _close(g, wnt, 1e-4)
 
 
+# one shape a path: resident in one block, resident over a cluster,
+# streamed, scalar
+BITWISE = [(4, 2560, 8, 8), (4, 256, 128, 128), (4, 640, 64, 64),
+           (2, 128, 512, 512), (3, 6, 5, 7)]
+
+
 @pytest.mark.cuda
-def test_k4b_is_deterministic(cuda):
-    """A second pass instead of atomics: dscale and dbias bitwise equal
-    from run to run."""
-    x, weight, bias, dy = _inputs(cuda, 4, 256, 128, 128)
-    _, mean, rstd = gn.groupnorm_silu(x, weight, bias, 32, 1e-6)
-    first = gn.groupnorm_silu_backward(dy, x, weight, bias, mean, rstd, 32)
-    second = gn.groupnorm_silu_backward(dy, x, weight, bias, mean, rstd, 32)
+@pytest.mark.parametrize("shape", BITWISE, ids=str)
+def test_k4_is_deterministic(cuda, shape):
+    """y, mean and rstd bitwise equal from run to run."""
+    x, weight, bias, _ = _inputs(cuda, *shape)
+    groups = 3 if shape[1] == 6 else 32
+    first = gn.groupnorm_silu(x, weight, bias, groups, 1e-6)
+    second = gn.groupnorm_silu(x, weight, bias, groups, 1e-6)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BITWISE, ids=str)
+def test_k4b_is_deterministic(cuda, shape):
+    """Fixed-order sums instead of atomics: dx, dscale and dbias bitwise
+    equal from run to run."""
+    x, weight, bias, dy = _inputs(cuda, *shape)
+    groups = 3 if shape[1] == 6 else 32
+    _, mean, rstd = gn.groupnorm_silu(x, weight, bias, groups, 1e-6)
+    first = gn.groupnorm_silu_backward(dy, x, weight, bias, mean, rstd,
+                                       groups)
+    second = gn.groupnorm_silu_backward(dy, x, weight, bias, mean, rstd,
+                                        groups)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 
