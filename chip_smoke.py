@@ -13,8 +13,9 @@ Phases, each of which fails the script (exit code 1) when it fails:
    checkout's sources (one ``nvcc`` per source, started together).
 3. Kernel vs plain (TF32 off): K1 (fused masked SGD) against its plain
    PyTorch version at N = 11,173,962 (ResNet-18 CIFAR, the main path's
-   shape), 50%-dense mask, two learning rates: bitwise equal
-   (``torch.equal``). K2, K3a and K3b (flash attention forward, dq, dk/dv)
+   shape), 15,334,948 (vgg16_bn, 100 classes) and 23,705,252 (ResNet-50,
+   CIFAR stem, 100 classes), one kernel-table row each, 50%-dense mask,
+   two learning rates: bitwise equal (``torch.equal``). K2, K3a and K3b (flash attention forward, dq, dk/dv)
    against their plain versions at the DDPM path's shapes ([B, N, D] =
    [128, 256, 256], [256, 256, 256], [128, 16, 256]) and ragged ones (N =
    77, Nq ≠ Nk, D = 40, 64, 160, 8): max abs and relative error, failing
@@ -52,6 +53,27 @@ Phases, each of which fails the script (exit code 1) when it fails:
    exactly int(N/2) ones; after RL every masked-out weight equals θ₀
    bitwise; K1's launch count equals the optimizer steps; every metric is
    finite.
+4b. The rest of the classification workload, through the port's CLIs on
+   the card (TF32 on), cut to 1 epoch each on phase 4's 12,000/2,000
+   images:
+   - ``main_random --unlearn GA | GA_l1 | FT | FT_l1`` with phase 4's
+     ResNet-18 and 0.5 mask: every masked-out weight equals θ₀ bitwise,
+     some kept weight moved, K1 launches = optimizer steps (GA: ⌈forget /
+     bs⌉, FT: ⌈retain / bs⌉), UA/RA/TA and SVC-MIA finite;
+   - ``main_forget --unlearn FT`` (no mask) and ``--unlearn retrain``
+     (from the seeded init): K1 launches 0 times, metrics finite;
+   - ``main_train`` on ResNet-18 (lr 0.1, bs 256): 2 epochs straight,
+     then 1 epoch and ``--resume`` to 2 in a fresh directory, with cuDNN
+     deterministic for these calls: the resumed checkpoint (weights, BN
+     statistics, momentum, step count) equals the straight run's bitwise;
+     seconds per epoch and images/s printed;
+   - vgg16_bn and ResNet-50 (CIFAR stem) at full width on synthetic
+     CIFAR-100 files (12,000/2,000 images, 100 classes, 1,000 forget):
+     ``generate_mask``, then ``main_random --unlearn RL`` with the 0.5 mask
+     for 1 epoch (CIFAR-100's relabel-and-concat regime). Checks: the
+     model's parameter count (printed) equals the constant of K1's row and
+     the mask's size, the mask is exact-k, θ₀ pinned bitwise, K1
+     launches = ⌈(forget + retain) / bs⌉, metrics finite.
 5. DDPM chain at full width: the model block of
    ``configs/ddpm/cifar10_saliency_unlearn.yml`` (38,632,323 parameters,
    seeded random weights written as a reference ``ckpts/ckpt.pth``), a
@@ -86,9 +108,10 @@ Phases, each of which fails the script (exit code 1) when it fails:
    share of the step and of a sampling row: both kernels and the library
    pair timed at every GroupNormSiLU shape of a seeded full-width U-Net
    and VAE (forward hooks), times their launches.
-7. A ``{"kernels": [...]}`` line (launches per path and in all), the
-   card's name and power limit, and as the last line ``{"ok": true,
-   "device": {...}}``.
+7. A ``{"kernels": [...]}`` line (launches per path and in all; K1's
+   ResNet-18 row counts the ResNet-18 paths, its vgg16_bn and ResNet-50
+   rows their RL paths), the card's name and power limit, and as the last
+   line ``{"ok": true, "device": {...}}``.
 
 Scratch files go to ``build/chip_smoke/`` inside the checkout.
 """
@@ -108,6 +131,12 @@ ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
 
 N_K1 = 11_173_962          # ResNet-18 (CIFAR stem, 10 classes) parameters
+N_VGG16_BN = 15_334_948    # vgg16_bn, 100 classes
+N_RESNET50 = 23_705_252    # ResNet-50 (CIFAR stem), 100 classes
+# K1's rows: (kernel-table name, N); the first is the ResNet-18 paths'
+K1_NAME = "K1 masked_sgd_update"
+K1_ROWS = [(K1_NAME, N_K1), (f"{K1_NAME} vgg16_bn", N_VGG16_BN),
+           (f"{K1_NAME} resnet50", N_RESNET50)]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12         # H100 SXM fp32, outside the tensor cores
 TF32X3_FLOPS = 495e12 / 3  # H100 SXM TF32 dense, three products (3xTF32)
@@ -115,6 +144,7 @@ TF32X3_FLOPS = 495e12 / 3  # H100 SXM TF32 dense, three products (3xTF32)
 # Main-path data: CIFAR-shaped, cut in count from CIFAR-10's 50,000/10,000
 N_TRAIN, N_TEST, N_FORGET = 12_000, 2_000, 1_000
 BATCH, LR, EPOCHS = 256, 0.013, 1
+TRAIN_EPOCHS = 2  # main_train: straight, and 1 + --resume
 
 # Flash attention: the DDPM path's [B, N, D] (bs 128 unlearning, the CFG-
 # doubled bs 256 of mask generation, the 4x4 mid block) and ragged shapes
@@ -228,14 +258,14 @@ def _bound(n_bytes: float, n_ops: float, flops: float = FP32_FLOPS):
 # ------------------------------------------------------------------ phase 3
 
 
-def k1_vs_plain(device) -> dict:
+def k1_vs_plain(device, name: str, n: int) -> dict:
+    """K1 against its plain version at ``n`` elements: bitwise, timed."""
     import torch
 
     from salun_torch.kernels.masked_update import (
         masked_sgd_update, masked_sgd_update_reference)
 
     gen = torch.Generator(device=device).manual_seed(0)
-    n = N_K1
     p0 = torch.randn(n, generator=gen, device=device)
     b0 = torch.randn(n, generator=gen, device=device)
     g = torch.randn(n, generator=gen, device=device)
@@ -252,8 +282,8 @@ def k1_vs_plain(device) -> dict:
                   float((b - want_b).abs().max()))
         max_err = max(max_err, err)
         if not (torch.equal(p, want_p) and torch.equal(b, want_b)):
-            fail(f"K1 differs from its plain version at lr={lr_value}: "
-                 f"max abs err {err}")
+            fail(f"K1 differs from its plain version at N = {n}, "
+                 f"lr={lr_value}: max abs err {err}")
         log(f"K1 vs plain lr={lr_value}: bitwise equal over {n} elements")
 
     lr = torch.full((1,), 0.013, dtype=torch.float32, device=device)
@@ -266,11 +296,11 @@ def k1_vs_plain(device) -> dict:
     n_bytes = n * (4 * 4 + 1) + 4 + n * 2 * 4
     n_ops = 7 * n  # 4 mul, 2 add, 1 sub per element
     bound_ms, bound_by = _bound(n_bytes, n_ops)
-    log(f"K1: {ms:.5f} ms/launch, plain {plain_ms:.5f} ms, bound "
+    log(f"K1 N = {n}: {ms:.5f} ms/launch, plain {plain_ms:.5f} ms, bound "
         f"{bound_ms:.5f} ms ({n_bytes} bytes), {n_bytes / ms / 1e6:.1f} GB/s")
-    return {"name": "K1 masked_sgd_update", "route": "cuda",
+    return {"name": name, "route": "cuda",
             "source": "salun_torch/csrc/masked_sgd.cu",
-            "replaces": "salun/kernels/masked_update.py:27",
+            "replaces": "salun/kernels/masked_update.py:27", "n": n,
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
@@ -671,13 +701,53 @@ def write_cifar10_files(data_dir: Path, train, test=None) -> None:
         dump("test_batch", test)
 
 
+def check_pinned(mask: dict, before: Path, after: Path, what: str) -> None:
+    """Every masked-out weight of the checkpoint ``after`` equals the one
+    of ``before`` bitwise, and some kept weight moved."""
+    import torch
+
+    from salun_torch.ckpt import load_state_dict
+
+    theta0, out = load_state_dict(str(before)), load_state_dict(str(after))
+    moved = 0
+    for name, m in mask.items():
+        out_w, in_w = out[name], theta0[name]
+        if not torch.equal(out_w[m == 0], in_w[m == 0]):
+            fail(f"{what}: {name}: a masked-out weight left θ₀")
+        moved += int((out_w[m > 0] != in_w[m > 0]).sum())
+    if moved == 0:
+        fail(f"{what} moved no kept weight")
+    log(f"after {what}: every masked-out weight equals θ₀ bitwise; "
+        f"{moved} kept weights moved")
+
+
+def check_metrics(results: dict, what: str) -> None:
+    """UA/RA/TA and the five SVC-MIA numbers are finite."""
+    mia = results["SVC_MIA_forget_efficacy"]
+    values = [results[k] for k in ("retain", "forget", "val", "test", "UA")]
+    values += [mia[k] for k in ("correctness", "confidence", "entropy",
+                                "m_entropy", "prob")]
+    if len(mia) != 5 or not all(math.isfinite(v) for v in values):
+        fail(f"{what}: non-finite metrics: {results}")
+
+
+def unlearn_loaders(argv):
+    """The forget/retain/val/test loaders an unlearning CLI call with
+    ``argv`` builds (on the CPU; the model built alongside is dropped)."""
+    from salun_torch.cli.args import parse_args
+    from salun_torch.cli.setup import (build_unlearn_loaders,
+                                       setup_model_dataset)
+
+    args = parse_args(argv)
+    _, train, val, test, marked = setup_model_dataset(args, "cpu", 0)
+    return build_unlearn_loaders(args, train, val, test, marked)
+
+
 def main_path(device, kernel_ms: float) -> dict:
     import torch
 
-    from salun_torch.ckpt import load_mask, load_state_dict
+    from salun_torch.ckpt import load_mask
     from salun_torch.cli import generate_mask, main_random
-    from salun_torch.cli.args import parse_args
-    from salun_torch.cli.setup import build_unlearn_loaders, setup_model_dataset
     from salun_torch.data.datasets import synthetic
     from salun_torch.kernels.masked_update import masked_sgd_update
     from salun_torch.models import create_model
@@ -720,36 +790,18 @@ def main_path(device, kernel_ms: float) -> dict:
     log(f"mask 0.5: exactly {ones} of {n_params} ones")
 
     # masked-out weights pinned to θ₀, bitwise; kept weights moved
-    theta0 = load_state_dict(str(model_path))
-    after = load_state_dict(str(out_dir / "RL_checkpoint.pt"))
-    moved = 0
-    for name, m in mask.items():
-        out_w, in_w = after[name], theta0[name]
-        if not torch.equal(out_w[m == 0], in_w[m == 0]):
-            fail(f"{name}: a masked-out weight left θ₀")
-        moved += int((out_w[m > 0] != in_w[m > 0]).sum())
-    if moved == 0:
-        fail("RL moved no kept weight")
-    log(f"after RL: every masked-out weight equals θ₀ bitwise; "
-        f"{moved} kept weights moved")
+    check_pinned(mask, model_path, out_dir / "RL_checkpoint.pt", "RL")
 
     # one K1 launch per optimizer step
-    args = parse_args(rl_args)
-    _, train, val, test, marked = setup_model_dataset(args, "cpu", 0)
-    loaders, forget, retain = build_unlearn_loaders(args, train, val, test,
-                                                    marked)
+    loaders, forget, retain = unlearn_loaders(rl_args)
     steps = EPOCHS * (len(loaders["forget"]) + len(loaders["retain"]))
     if launches["K1 masked_sgd_update"] != steps:
         fail(f"K1 launched {launches['K1 masked_sgd_update']} times for "
              f"{steps} optimizer steps")
     log(f"K1 launches {launches['K1 masked_sgd_update']} = optimizer steps")
 
+    check_metrics(results, "RL")
     mia = results["SVC_MIA_forget_efficacy"]
-    values = [results[k] for k in ("retain", "forget", "val", "test", "UA")]
-    values += [mia[k] for k in ("correctness", "confidence", "entropy",
-                                "m_entropy", "prob")]
-    if len(mia) != 5 or not all(math.isfinite(v) for v in values):
-        fail(f"non-finite metrics: {results}")
     sec = results["seconds"]
     images = EPOCHS * (len(forget) + len(retain))
     k1_ms = kernel_ms * launches["K1 masked_sgd_update"]
@@ -762,6 +814,212 @@ def main_path(device, kernel_ms: float) -> dict:
         f"K1 {k1_ms:.3f} ms of it at the phase-3 time), "
         f"UA/RA/TA {sec['accuracy']:.3f}, SVC-MIA {sec['mia']:.3f}")
     return launches
+
+
+# ----------------------------------------------------------------- phase 4b
+
+
+def write_cifar100_files(data_dir: Path, train, test) -> None:
+    """``train`` and ``test`` in CIFAR-100's python-pickle format
+    (``cifar-100-python/{train,test}``, fine and coarse labels)."""
+    base = data_dir / "cifar-100-python"
+    base.mkdir(parents=True, exist_ok=True)
+    for name, ds in (("train", train), ("test", test)):
+        rows = ds.data.transpose(0, 3, 1, 2).reshape(len(ds), -1)
+        with open(base / name, "wb") as f:
+            pickle.dump({b"data": rows, b"fine_labels": ds.targets.tolist(),
+                         b"coarse_labels": (ds.targets // 5).tolist()}, f)
+
+
+def _unlearn_call(cli, argv, what: str) -> tuple:
+    """One unlearning CLI call with K1's count set to 0 just before it and
+    read just after; returns ``(results, launches)``."""
+    import torch
+
+    from salun_torch.kernels.masked_update import masked_sgd_update
+
+    masked_sgd_update.launches = 0
+    t0 = time.perf_counter()
+    results = cli.main(argv)
+    torch.cuda.synchronize()
+    t_call = time.perf_counter() - t0
+    launches = masked_sgd_update.launches
+    check_metrics(results, what)
+    sec = results["seconds"]
+    log(f"{what}: UA {results['UA']:.2f} RA {results['retain']:.2f} "
+        f"TA {results['test']:.2f} MIA "
+        f"{json.dumps(results['SVC_MIA_forget_efficacy'])}; seconds: "
+        f"whole CLI call {t_call:.3f}, unlearn {sec['unlearn']:.3f}, "
+        f"UA/RA/TA {sec['accuracy']:.3f}, SVC-MIA {sec['mia']:.3f}; "
+        f"K1 launches {launches}")
+    return results, launches
+
+
+def _expect_launches(what: str, launches: int, steps: int,
+                     results: dict, kernel_ms: float) -> None:
+    if launches != steps:
+        fail(f"{what}: K1 launched {launches} times for {steps} "
+             f"optimizer steps")
+    if steps:
+        sec = results["seconds"]["unlearn"]
+        log(f"{what}: K1 launches {launches} = optimizer steps; "
+            f"{1e3 * sec / steps:.3f} ms/step cold (set-up included), K1 "
+            f"{kernel_ms * launches:.3f} ms of it at the phase-3 time")
+
+
+def methods_paths(device, kernel_ms: float) -> dict:
+    """GA, GA_l1, FT and FT_l1 with phase 4's 0.5 mask, then main_forget's
+    FT and retrain, on phase 4's data and ResNet-18; returns K1's launches
+    per path."""
+    from salun_torch.ckpt import load_mask
+    from salun_torch.cli import main_forget, main_random
+
+    data_dir, model_path = WORK / "data", WORK / "resnet18_seed0.pt"
+    mask_file = WORK / "out" / "with_0.5.pt"
+    mask = load_mask(str(mask_file))
+    common = ["--dataset", "cifar10", "--data", str(data_dir),
+              "--arch", "resnet18", "--model_path", str(model_path),
+              "--batch_size", str(BATCH), "--num_indexes_to_replace",
+              str(N_FORGET), "--class_to_replace", "-1",
+              "--device", str(device), "--unlearn_lr", str(LR),
+              "--unlearn_epochs", str(EPOCHS)]
+    loaders, _, _ = unlearn_loaders(common)
+    by_path = {}
+    for method, loader in (("GA", "forget"), ("GA_l1", "forget"),
+                           ("FT", "retain"), ("FT_l1", "retain")):
+        out_dir = WORK / "methods"
+        argv = common + ["--unlearn", method, "--mask_path", str(mask_file),
+                         "--save_dir", str(out_dir)]
+        what = f"main_random --unlearn {method}"
+        results, launches = _unlearn_call(main_random, argv, what)
+        check_pinned(mask, model_path, out_dir / f"{method}_checkpoint.pt",
+                     what)
+        _expect_launches(what, launches, EPOCHS * len(loaders[loader]),
+                         results, kernel_ms)
+        by_path[what] = {K1_NAME: launches}
+    for method in ("FT", "retrain"):
+        argv = common + ["--unlearn", method,
+                         "--save_dir", str(WORK / "forget")]
+        what = f"main_forget --unlearn {method}"
+        results, launches = _unlearn_call(main_forget, argv, what)
+        _expect_launches(what, launches, 0, results, kernel_ms)
+        by_path[what] = {K1_NAME: launches}
+    return by_path
+
+
+def train_resume_path(device) -> dict:
+    """``main_train`` on ResNet-18 for TRAIN_EPOCHS epochs straight, then
+    one epoch and ``--resume`` to TRAIN_EPOCHS in a fresh directory, with
+    cuDNN deterministic for these calls: the resumed checkpoint must equal
+    the straight run's bitwise. Returns K1's launches (none: plain SGD)."""
+    import torch
+
+    from salun_torch.cli import main_train
+    from salun_torch.kernels.masked_update import masked_sgd_update
+
+    common = ["--dataset", "cifar10", "--data", str(WORK / "data"),
+              "--arch", "resnet18", "--batch_size", str(BATCH),
+              "--lr", "0.1", "--device", str(device)]
+    straight, resumed = WORK / "train_straight", WORK / "train_resumed"
+    was = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    try:
+        masked_sgd_update.launches = 0
+        out = main_train.main(common + ["--epochs", str(TRAIN_EPOCHS),
+                                        "--save_dir", str(straight)])
+        main_train.main(common + ["--epochs", "1",
+                                  "--save_dir", str(resumed)])
+        main_train.main(common + ["--epochs", str(TRAIN_EPOCHS), "--resume",
+                                  "--save_dir", str(resumed)])
+        torch.cuda.synchronize()
+        launches = masked_sgd_update.launches
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = was
+    a, b = (torch.load(d / "checkpoint.pt", map_location="cpu",
+                       weights_only=True) for d in (straight, resumed))
+    if a["epoch"] != TRAIN_EPOCHS or b["epoch"] != TRAIN_EPOCHS:
+        fail(f"main_train ended at epochs {a['epoch']} and {b['epoch']}")
+    same = [torch.equal(v, b["state_dict"][k])
+            for k, v in a["state_dict"].items()]
+    same.append(torch.equal(a["momentum"], b["momentum"]))
+    if not all(same) or a["count"] != b["count"]:
+        fail(f"main_train --resume differs from the straight run in "
+             f"{same.count(False)} of {len(same)} tensors")
+    if not all(math.isfinite(v) for c in a["curves"].values() for v in c):
+        fail(f"main_train curves not finite: {a['curves']}")
+    if launches != 0:
+        fail(f"main_train launched K1 {launches} times")
+    secs = out["epoch_seconds"]
+    log(f"main_train --resume: bitwise equal to {TRAIN_EPOCHS} epochs "
+        f"straight ({len(same)} tensors, cuDNN deterministic); curves "
+        f"{json.dumps(a['curves'])}")
+    log(f"main_train seconds per epoch {[round(x, 3) for x in secs]} "
+        f"({out['images_per_epoch']} images, "
+        f"{[round(out['images_per_epoch'] / x, 1) for x in secs]} img/s; "
+        f"the first epoch cold)")
+    return {"main_train": {K1_NAME: launches}}
+
+
+def cifar100_arch_paths(device, k1_rows: dict) -> dict:
+    """vgg16_bn and ResNet-50 (CIFAR stem) at full width on synthetic
+    CIFAR-100 files: ``generate_mask``, then ``main_random --unlearn RL``
+    with the 0.5 mask (CIFAR-100's relabel-and-concat regime). Returns
+    K1's launches per path, keyed by the arch's K1 row."""
+    import torch
+
+    from salun_torch.ckpt import load_mask
+    from salun_torch.cli import generate_mask, main_random
+    from salun_torch.data.datasets import synthetic
+    from salun_torch.models import create_model
+
+    work = WORK / "cifar100"
+    data_dir = work / "data"
+    write_cifar100_files(
+        data_dir, synthetic(n=N_TRAIN, num_classes=100, seed=3),
+        synthetic(n=N_TEST, num_classes=100, seed=4))
+    by_path = {}
+    for arch, n_want in (("vgg16_bn", N_VGG16_BN),
+                         ("resnet50", N_RESNET50)):
+        row = f"{K1_NAME} {arch}"
+        model_path, out_dir = work / f"{arch}_seed0.pt", work / arch
+        model = create_model(arch, 100, seed=0)
+        n_model = sum(p.numel() for p in model.parameters())
+        torch.save({"state_dict": model.state_dict()}, model_path)
+        del model
+        common = ["--dataset", "cifar100", "--data", str(data_dir),
+                  "--arch", arch, "--model_path", str(model_path),
+                  "--save_dir", str(out_dir), "--batch_size", str(BATCH),
+                  "--num_indexes_to_replace", str(N_FORGET),
+                  "--class_to_replace", "-1", "--device", str(device)]
+        t0 = time.perf_counter()
+        generate_mask.main(common)
+        t_mask = time.perf_counter() - t0
+        mask_file = out_dir / "with_0.5.pt"
+        mask = load_mask(str(mask_file))
+        n_mask = sum(v.numel() for v in mask.values())
+        ones = int(sum(int(v.sum()) for v in mask.values()))
+        if not n_mask == n_model == n_want or ones != n_want // 2:
+            fail(f"{arch}: 0.5 mask has {ones} ones of {n_mask}; the model "
+                 f"has {n_model} parameters, want {n_want}")
+        log(f"{arch}, 100 classes: {n_model} parameters; mask 0.5 exactly "
+            f"{ones} ones; generate_mask {t_mask:.3f} s (whole CLI call)")
+        argv = common + ["--unlearn", "RL", "--mask_path", str(mask_file),
+                         "--unlearn_lr", str(LR),
+                         "--unlearn_epochs", str(EPOCHS)]
+        what = f"{arch} main_random --unlearn RL"
+        results, launches = _unlearn_call(main_random, argv, what)
+        check_pinned(mask, model_path, out_dir / "RL_checkpoint.pt", what)
+        loaders, forget, retain = unlearn_loaders(argv)
+        # one relabelled forget ∪ retain loader an epoch (RL.py:51-59)
+        steps = EPOCHS * -(-(len(forget) + len(retain)) // BATCH)
+        _expect_launches(what, launches, steps, results, k1_rows[row])
+        sec = results["seconds"]["unlearn"]
+        log(f"{what}: {EPOCHS * (len(forget) + len(retain)) / sec:.1f} "
+            f"img/s cold")
+        by_path[what] = {row: launches}
+    return by_path
 
 
 # ------------------------------------------------------------------ phase 5
@@ -1357,7 +1615,8 @@ def main() -> None:
 
     set_tf32(False)  # parity checks run in full fp32
     log(f"TF32 for the kernel checks: {tf32_settings()}")
-    kernels = [k1_vs_plain(device)]
+    kernels = [k1_vs_plain(device, name, n) for name, n in K1_ROWS]
+    k1_ms = {k["name"]: k["ms"] for k in kernels}
     attn_entries, attn_ms = attention_vs_plain(device)
     kernels += attn_entries
     gn_entries, _ = groupnorm_vs_plain(device)
@@ -1366,9 +1625,12 @@ def main() -> None:
     masks_card_vs_cpu(device)
 
     # the main paths through the CLIs (TF32 on), each counted on its own
-    by_path = {"classification": main_path(device, kernels[0]["ms"]),
-               "ddpm": ddpm_path(device, attn_ms),
-               "sd": sd_path(device, sd_attn_rows)}
+    by_path = {"classification": main_path(device, k1_ms[K1_NAME])}
+    by_path.update(methods_paths(device, k1_ms[K1_NAME]))
+    by_path.update(train_resume_path(device))
+    by_path.update(cifar100_arch_paths(device, k1_ms))
+    by_path["ddpm"] = ddpm_path(device, attn_ms)
+    by_path["sd"] = sd_path(device, sd_attn_rows)
     log(f"TF32 on the main paths: {tf32_settings()}")
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()

@@ -7,6 +7,11 @@ port's torch state dicts, without importing anything of ``salun``:
 - BatchNorm ``scale`` → ``weight``; ``mean``/``var`` → ``running_mean``/
   ``running_var``;
 - module names ``layer1_0/downsample_conv`` → ``layer1.0.downsample.0``;
+- for VGG, ``conv{i}``/``bn{i}`` → ``features.N`` (the i-th conv's index in
+  the conv/BN/ReLU/max-pool sequence, its BN the next), ``fc{1,2,3}`` →
+  ``classifier.{0,2,4}``; fc1's input order is permuted, since torch
+  flattens the 2x2 pooled map as (C, H, W) and flax as (H, W, C), as
+  ``salun/ckpt/torch_import.py:115-125`` does;
 - for the DDPM U-Net, its own copy of the name map of
   ``salun/ckpt/torch_import.py:315-436`` (``temb_dense0`` ↔
   ``temb.dense.0``, ``down_1_attn_0/q`` ↔ ``down.1.attn.0.q``,
@@ -25,6 +30,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from salun_torch.models.vgg import conv_feature_indices
 
 
 def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -78,6 +85,49 @@ def torch_module_to_jax(module: str) -> str:
     return "/".join(parts)
 
 
+_VGG_FC = {"fc1": "classifier.0", "fc2": "classifier.2",
+           "fc3": "classifier.4", "classifier": "classifier"}
+
+
+def vgg_module_to_torch(module: str) -> str:
+    """A JAX ``VGG`` module name → the reference torch module name."""
+    m = re.fullmatch(r"(conv|bn)(\d+)", module)
+    if m:
+        idx = conv_feature_indices()[int(m.group(2))]
+        return f"features.{idx + (m.group(1) == 'bn')}"
+    return _VGG_FC[module]
+
+
+def vgg_module_to_jax(module: str) -> str:
+    """Inverse of :func:`vgg_module_to_torch`."""
+    parts = module.split(".")
+    if parts[0] == "features":
+        convs, idx = conv_feature_indices(), int(parts[1])
+        if idx in convs:
+            return f"conv{convs.index(idx)}"
+        return f"bn{convs.index(idx - 1)}"
+    return {v: k for k, v in _VGG_FC.items()}[module]
+
+
+def _is_vgg_tree(flat: Dict[str, np.ndarray]) -> bool:
+    # the ResNets have conv1/bn1 at the top too, but never a conv0
+    return any(k.split("/", 1)[0] == "conv0" for k in flat)
+
+
+def _fc1_hwc_to_chw(w: np.ndarray) -> np.ndarray:
+    """[out, 4·C] with the inputs in flax's (H, W, C) order → torch's
+    (C, H, W) order."""
+    out, cin = w.shape
+    return w.reshape(out, 2, 2, cin // 4).transpose(0, 3, 1, 2).reshape(
+        out, cin)
+
+
+def _fc1_chw_to_hwc(w: np.ndarray) -> np.ndarray:
+    out, cin = w.shape
+    return w.reshape(out, cin // 4, 2, 2).transpose(0, 2, 3, 1).reshape(
+        out, cin)
+
+
 def _to_torch(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, order="C", copy=True))
 
@@ -92,17 +142,32 @@ def _leaf_to_torch(arr: np.ndarray, leaf: str):
     return leaf, arr
 
 
-def state_dict_from_jax(params, batch_stats) -> Dict[str, torch.Tensor]:
-    """JAX ``(params, batch_stats)`` numpy trees → the port's state dict
-    (every BatchNorm also gets ``num_batches_tracked = 0``)."""
-    sd: Dict[str, torch.Tensor] = {}
-    for path, v in _flatten(params).items():
+def _params_to_torch(flat: Dict[str, np.ndarray], dtype=None) -> dict:
+    """Flat JAX param-layout leaves → ``{torch name: tensor}``."""
+    vgg = _is_vgg_tree(flat)
+    out = {}
+    for path, v in flat.items():
         mod, leaf = path.rsplit("/", 1)
-        tleaf, arr = _leaf_to_torch(np.asarray(v), leaf)
-        sd[f"{jax_path_to_torch(mod)}.{tleaf}"] = _to_torch(arr)
+        tleaf, arr = _leaf_to_torch(np.asarray(v, dtype), leaf)
+        if vgg:
+            if mod == "fc1" and tleaf == "weight":
+                arr = _fc1_hwc_to_chw(arr)
+            out[f"{vgg_module_to_torch(mod)}.{tleaf}"] = _to_torch(arr)
+        else:
+            out[f"{jax_path_to_torch(mod)}.{tleaf}"] = _to_torch(arr)
+    return out
+
+
+def state_dict_from_jax(params, batch_stats) -> Dict[str, torch.Tensor]:
+    """JAX ``(params, batch_stats)`` numpy trees of a ResNet or VGG → the
+    port's state dict (every BatchNorm also gets ``num_batches_tracked =
+    0``)."""
+    flat = _flatten(params)
+    sd: Dict[str, torch.Tensor] = _params_to_torch(flat)
+    to_torch = vgg_module_to_torch if _is_vgg_tree(flat) else jax_path_to_torch
     for path, v in _flatten(batch_stats).items():
         mod, leaf = path.rsplit("/", 1)
-        base = jax_path_to_torch(mod)
+        base = to_torch(mod)
         name = {"mean": "running_mean", "var": "running_var"}[leaf]
         sd[f"{base}.{name}"] = _to_torch(np.asarray(v))
         sd.setdefault(f"{base}.num_batches_tracked",
@@ -113,12 +178,7 @@ def state_dict_from_jax(params, batch_stats) -> Dict[str, torch.Tensor]:
 def mask_from_jax(mask_tree) -> Dict[str, torch.Tensor]:
     """JAX mask tree (param layout) → ``{torch_name: fp32 0/1 tensor}`` in
     torch layout, the reference ``with_{t}.pt`` format."""
-    out = {}
-    for path, v in _flatten(mask_tree).items():
-        mod, leaf = path.rsplit("/", 1)
-        tleaf, arr = _leaf_to_torch(np.asarray(v, np.float32), leaf)
-        out[f"{jax_path_to_torch(mod)}.{tleaf}"] = _to_torch(arr)
-    return out
+    return _params_to_torch(_flatten(mask_tree), np.float32)
 
 
 def mask_to_jax(mask: Dict[str, torch.Tensor]) -> dict:
@@ -129,15 +189,19 @@ def mask_to_jax(mask: Dict[str, torch.Tensor]) -> dict:
     for name, t in mask.items():
         arr = t.detach().cpu().numpy().astype(np.float32)
         module, leaf = name.rsplit(".", 1)
+        vgg = module.split(".")[0] in ("features", "classifier")
         if leaf == "weight":
             if arr.ndim == 4:
                 leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
             elif arr.ndim == 2:
+                if vgg and module == "classifier.0":
+                    arr = _fc1_chw_to_hwc(arr)
                 leaf, arr = "kernel", arr.T
             else:
                 leaf = "scale"
-        flat[f"{torch_module_to_jax(module)}/{leaf}"] = (
-            np.ascontiguousarray(arr))
+        jax_mod = vgg_module_to_jax(module) if vgg else torch_module_to_jax(
+            module)
+        flat[f"{jax_mod}/{leaf}"] = np.ascontiguousarray(arr)
     return _unflatten(flat)
 
 

@@ -3,13 +3,18 @@
 15-188).
 
 Loads θ and the saliency mask, runs the unlearning method with the mask
-(RL: masked SGD, one launch of kernel K1 per step on the card), then
-evaluates UA/RA/TA and the SVC-MIA forget efficacy and writes
-``{unlearn}_checkpoint.pt`` and ``{unlearn}_eval_result.json``.
+(RL, GA, GA_l1, FT, FT_l1: masked SGD, one launch of kernel K1 per step
+on the card; ``retrain`` starts from the seeded init and ignores θ and
+the mask), then evaluates UA/RA/TA and the SVC-MIA forget efficacy and
+writes ``{unlearn}_checkpoint.pt`` and ``{unlearn}_eval_result.json``.
+With ``--resume`` and an existing ``{unlearn}_checkpoint.pt``, the
+unlearned model is loaded and the unlearning loop skipped; the evaluation
+is computed anew (main_random.py:122-126). ``main_forget`` is this CLI
+without the mask.
 
 Usage: python -m salun_torch.cli.main_random --unlearn RL \
            --mask_path masks/with_0.5.pt --model_path model.pt \
-           --unlearn_lr 0.013 --unlearn_epochs 10 [--device cpu]
+           --unlearn_lr 0.013 --unlearn_epochs 10 [--resume] [--device cpu]
 """
 
 from __future__ import annotations
@@ -20,7 +25,8 @@ import time
 import numpy as np
 import torch
 
-from salun_torch.ckpt import load_mask, save_checkpoint, save_eval_results
+from salun_torch.ckpt import (checkpoint_path, load_mask, save_checkpoint,
+                             save_eval_results)
 from salun_torch.cli.args import parse_args
 from salun_torch.cli.setup import (build_unlearn_loaders, load_model,
                                    setup_model_dataset)
@@ -70,13 +76,18 @@ def run(argv=None, use_mask=True) -> dict:
         print_freq=args.print_freq,
     )
 
-    method = get_unlearn_method(args.unlearn)
-    source = generator_source(make_generator(args.train_seed, device),
-                              cfg.num_classes)
+    unlearn_ckpt = checkpoint_path(args.save_dir, args.unlearn)
     _sync(device)
     t0 = time.perf_counter()
-    model, _ = method(loaders, model, cfg, mask=mask, device=device,
-                      source=source)
+    if args.resume and os.path.exists(unlearn_ckpt):
+        print(f"resume from unlearn checkpoint {unlearn_ckpt}")
+        load_model(model, unlearn_ckpt)
+    else:
+        method = get_unlearn_method(args.unlearn)
+        source = generator_source(make_generator(args.train_seed, device),
+                                  cfg.num_classes)
+        model, _ = method(loaders, model, cfg, mask=mask, device=device,
+                          source=source)
     _sync(device)
     t_unlearn = time.perf_counter() - t0
 

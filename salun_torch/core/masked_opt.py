@@ -1,5 +1,6 @@
-"""Saliency-masked SGD over flat parameter buffers, and the grad-mask
-pieces of the DDPM optimizer (``clip_by_global_norm``, ``mask_grads``).
+"""Saliency-masked SGD over flat parameter buffers, the grad-mask-only
+SGD, and the grad-mask pieces of the DDPM optimizer
+(``clip_by_global_norm``, ``mask_grads``).
 
 Counterpart of ``salun/core/masked_opt.py``. SalUn's update rule
 (reference Classification/unlearn/RL.py:11-34): masked grads, the SGD step,
@@ -8,7 +9,10 @@ masked-out weights restored to θ₀ and their momentum zeroed.
 :class:`FlatParams` makes a module's parameters views into one flat fp32
 buffer and their ``.grad``s views into one flat grad buffer, so that
 :class:`MaskedSGD` updates the whole model with one launch of kernel K1
-per step (``salun_torch.kernels.masked_update``). Grads are zeroed in
+per step (``salun_torch.kernels.masked_update``). :class:`GradMaskSGD` is
+``optax.chain(mask_grads(mask), sgd)``: only the gradient is masked, so
+weight decay and momentum still move masked-out weights; it is not K1's
+rule and never launches it. Grads are zeroed in
 place, never set to ``None``, so autograd accumulates into the flat buffer;
 each step checks that it still does.
 """
@@ -161,12 +165,32 @@ class SGD(_FlatSGDBase):
     ``add_decayed_weights → trace → scale_by_learning_rate``, i.e.
     ``buf = (g + wd·p) + μ·buf; p = p - lr·buf``, for unmasked runs."""
 
+    def _grad(self) -> torch.Tensor:
+        return self.flat.grad
+
     @torch.no_grad()
     def step(self) -> None:
         self.flat.check_grads()
         self._set_lr()
         p, buf = self.flat.flat, self.trace
-        d = self.flat.grad + self.weight_decay * p
+        d = self._grad() + self.weight_decay * p
         buf.copy_(d + self.momentum * buf)
         p.copy_(p - self.lr * buf)
         self.count += 1
+
+
+class GradMaskSGD(SGD):
+    """``optax.chain(mask_grads(mask), sgd)`` (``salun/core/masked_opt.py:
+    44``, ``:169``): :class:`SGD` on ``g·mask``. ``mask`` is a flat 0/1
+    tensor in the order of ``flat``."""
+
+    def __init__(self, flat: FlatParams, learning_rate, momentum: float = 0.9,
+                 weight_decay: float = 5e-4, *, mask: torch.Tensor):
+        super().__init__(flat, learning_rate, momentum, weight_decay)
+        if mask.numel() != flat.flat.numel():
+            raise ValueError("mask must cover every parameter")
+        self.mask = mask.reshape(-1).to(device=flat.flat.device,
+                                        dtype=torch.float32).clone()
+
+    def _grad(self) -> torch.Tensor:
+        return self.flat.grad * self.mask

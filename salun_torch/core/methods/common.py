@@ -3,9 +3,10 @@
 Classification/unlearn/impl.py:54-127).
 
 Methods are plain functions ``(loaders, model, cfg, mask, source, device)
-→ model`` that update ``model`` in place: SGD(momentum, wd) with per-epoch
-MultiStepLR (γ=0.1) over flat parameter buffers, masked (kernel K1) when a
-saliency mask is given.
+→ (model, optimizer)`` that update ``model`` in place: SGD(momentum, wd)
+with per-epoch MultiStepLR (γ=0.1), or per-epoch cosine warmup for
+ImageNet retraining, over flat parameter buffers; masked (kernel K1) when
+a saliency mask and θ₀ are given.
 """
 
 from __future__ import annotations
@@ -15,8 +16,9 @@ from typing import Optional
 
 import torch
 
-from salun_torch.core.masked_opt import SGD, FlatParams, MaskedSGD
-from salun_torch.core.train import multistep_lr
+from salun_torch.core.masked_opt import (SGD, FlatParams, GradMaskSGD,
+                                         MaskedSGD)
+from salun_torch.core.train import cosine_warmup_lr, multistep_lr
 
 
 @dataclass
@@ -70,21 +72,28 @@ def mask_tensors(model: torch.nn.Module, mask: dict) -> list:
 
 def make_unlearn_optimizer(cfg: UnlearnConfig, model: torch.nn.Module,
                            steps_per_epoch: int, mask: Optional[dict] = None,
-                           theta0: Optional[list] = None):
-    """Optimizer + schedule per impl.py:68-97, over flat buffers.
+                           theta0: Optional[list] = None,
+                           retrain: bool = False):
+    """Optimizer + schedule per impl.py:68-97, over flat buffers
+    (``salun/core/methods/common.py:57-80``).
 
-    ``mask`` and ``theta0`` given → :class:`MaskedSGD` (K1); neither →
-    plain :class:`SGD`. Grad-mask-only optimizers and the cosine-warmup
-    schedule of ImageNet retraining are not ported yet.
+    The schedule is cosine warmup for ``cfg.imagenet_arch and retrain``,
+    else MultiStepLR. ``mask`` and ``theta0`` → :class:`MaskedSGD` (K1);
+    ``mask`` alone → :class:`GradMaskSGD` (grads masked, nothing pinned);
+    no mask → plain :class:`SGD`.
     """
-    if (mask is None) != (theta0 is None):
-        raise NotImplementedError("grad-mask-only optimizers are not "
-                                  "ported yet; pass both mask and theta0")
-    milestones = [int(x) for x in str(cfg.decreasing_lr).split(",") if x]
-    sched = multistep_lr(cfg.unlearn_lr, milestones, steps_per_epoch)
+    if cfg.imagenet_arch and retrain:
+        sched = cosine_warmup_lr(cfg.unlearn_lr, cfg.warmup,
+                                 cfg.unlearn_epochs, steps_per_epoch)
+    else:
+        milestones = [int(x) for x in str(cfg.decreasing_lr).split(",") if x]
+        sched = multistep_lr(cfg.unlearn_lr, milestones, steps_per_epoch)
     flat = FlatParams(model.parameters())
     if mask is None:
         return SGD(flat, sched, cfg.momentum, cfg.weight_decay)
+    flat_mask = flat.flatten(mask_tensors(model, mask))
+    if theta0 is None:
+        return GradMaskSGD(flat, sched, cfg.momentum, cfg.weight_decay,
+                           mask=flat_mask)
     return MaskedSGD(flat, sched, cfg.momentum, cfg.weight_decay,
-                     mask=flat.flatten(mask_tensors(model, mask)),
-                     theta0=flat.flatten(theta0))
+                     mask=flat_mask, theta0=flat.flatten(theta0))

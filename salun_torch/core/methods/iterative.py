@@ -1,13 +1,16 @@
 """Iterative unlearning methods (counterpart of
 ``salun/core/methods/iterative.py``): ``RL`` (random labelling, the SalUn
-method with a saliency mask) and the ``raw`` baseline. GA, FT, their l1
-variants and retrain wait for a later slice.
+method with a saliency mask), ``GA``/``GA_l1`` (gradient ascent on the
+forget set, unlearn/GA.py), ``FT``/``FT_l1`` (fine-tuning on the retain
+set, unlearn/FT.py:44-180), ``retrain`` (training from the fresh init on
+the retain set, unlearn/retrain.py) and the ``raw`` baseline.
 
 RL has two dataset regimes (reference Classification/unlearn/RL.py):
 CIFAR-100/TinyImageNet relabel the forget set once per epoch and train on
 forget∪retain (RL.py:51-107); CIFAR-10/SVHN draw fresh random labels per
 batch on a forget pass, then do a retain pass (RL.py:109-176). With a mask
-every step is the masked SGD step, one launch of kernel K1 on the card.
+every step of RL, GA, GA_l1, FT and FT_l1 is the masked SGD step, one
+launch of kernel K1 on the card; retrain ignores the mask.
 """
 
 from __future__ import annotations
@@ -22,6 +25,13 @@ from salun_torch.core.train import generator_source, run_epoch
 from salun_torch.data.loader import BatchIterator
 
 from .common import UnlearnConfig, make_unlearn_optimizer, snapshot_params
+
+
+def _default_source(source, cfg: UnlearnConfig, device):
+    if source is not None:
+        return source
+    gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    return generator_source(gen, cfg.num_classes)
 
 
 def _relabel_concat_loader(loaders, cfg: UnlearnConfig, epoch: int):
@@ -47,9 +57,7 @@ def RL(loaders, model, cfg: UnlearnConfig, mask: Optional[dict] = None, *,
     ``(model, optimizer)``. ``source`` gives each step's randomness
     (``salun_torch.core.train``); by default a generator seeded with
     ``cfg.seed`` on ``device``."""
-    if source is None:
-        gen = torch.Generator(device=device).manual_seed(cfg.seed)
-        source = generator_source(gen, cfg.num_classes)
+    source = _default_source(source, cfg, device)
     steps_per_epoch = len(loaders["forget"]) + len(loaders["retain"])
     theta0 = snapshot_params(model) if mask is not None else None
     opt = make_unlearn_optimizer(cfg, model, steps_per_epoch, mask, theta0)
@@ -63,6 +71,67 @@ def RL(loaders, model, cfg: UnlearnConfig, mask: Optional[dict] = None, *,
             run_epoch(model, opt, loaders["forget"], source, device,
                       random_labels=True)
             run_epoch(model, opt, loaders["retain"], source, device)
+    return model, opt
+
+
+def l1_schedule(cfg: UnlearnConfig, l1_mode: str,
+                steps_per_epoch: int) -> Optional[Callable[[int], float]]:
+    """The α of α·Σ|θ| at an optimizer step: none; ``"const"``, α
+    (GA_l1, GA.py:177); ``"decay"``, α·(1 − epoch/E) for epoch < E, else
+    0, with E = max(unlearn_epochs − no_l1_epochs, 1) (FT_l1,
+    FT.py:77-82). fp32, as the JAX step computes it."""
+    if l1_mode == "none":
+        return None
+    if l1_mode == "const":
+        return lambda step: cfg.alpha
+    e_l1 = max(cfg.unlearn_epochs - cfg.no_l1_epochs, 1)
+    f32 = np.float32
+
+    def coeff(step: int) -> float:
+        epoch = int(step) // steps_per_epoch
+        if epoch >= e_l1:
+            return 0.0
+        return float(f32(cfg.alpha) * (f32(1.0) - f32(epoch) / f32(e_l1)))
+
+    return coeff
+
+
+def _single_loader_method(loader_name: str, loss_sign: float,
+                          l1_mode: str = "none"):
+    def method(loaders, model, cfg: UnlearnConfig,
+               mask: Optional[dict] = None, *, device,
+               source: Optional[Callable] = None):
+        source = _default_source(source, cfg, device)
+        loader = loaders[loader_name]
+        steps_per_epoch = len(loader)
+        theta0 = snapshot_params(model) if mask is not None else None
+        opt = make_unlearn_optimizer(cfg, model, steps_per_epoch, mask,
+                                     theta0)
+        l1_coeff = l1_schedule(cfg, l1_mode, steps_per_epoch)
+        for _ in range(cfg.unlearn_epochs):
+            run_epoch(model, opt, loader, source, device,
+                      loss_sign=loss_sign, l1_coeff=l1_coeff)
+        return model, opt
+
+    return method
+
+
+GA = _single_loader_method("forget", loss_sign=-1.0)
+GA_l1 = _single_loader_method("forget", loss_sign=-1.0, l1_mode="const")
+FT = _single_loader_method("retain", loss_sign=1.0)
+FT_l1 = _single_loader_method("retain", loss_sign=1.0, l1_mode="decay")
+
+
+def retrain(loaders, model, cfg: UnlearnConfig, mask: Optional[dict] = None,
+            *, device, source: Optional[Callable] = None):
+    """Exact unlearning: train on retain from ``model``'s current (fresh)
+    weights, unmasked; the CLI skips loading θ (main_forget.py:131-132).
+    Cosine warmup for ImageNet archs (impl.py:75-93)."""
+    source = _default_source(source, cfg, device)
+    loader = loaders["retain"]
+    opt = make_unlearn_optimizer(cfg, model, len(loader), retrain=True)
+    for _ in range(cfg.unlearn_epochs):
+        run_epoch(model, opt, loader, source, device)
     return model, opt
 
 

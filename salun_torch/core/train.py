@@ -1,12 +1,13 @@
 """Classification trainer (counterpart of ``salun/core/train.py``).
 
-One train step augments on the device, optionally uses random labels and
-runs the optimizer step (the masked one launches K1). Randomness comes from
-a *source*: a callable ``(batch_size, *, random_labels) -> dict`` giving
-``offsets``/``flips`` (augment) and, for random labels, ``labels``. The
-default source draws from a ``torch.Generator``; the tests pass one that
-returns the draws of the JAX package's keys. Metrics stay on the device.
-The loss sign and the l1 term of GA/FT_l1 come with those methods.
+One train step augments on the device (unless asked not to), optionally
+uses random labels, computes ``loss_sign·CE + l1_coeff(step)·Σ|θ|`` and
+runs the optimizer step (the masked one launches K1). Randomness comes
+from a *source*: a callable ``(batch_size, *, random_labels) -> dict``
+giving ``offsets``/``flips`` (augment) and, for random labels, ``labels``.
+The default source draws from a ``torch.Generator``; the tests pass one
+that returns the draws of the JAX package's keys. Metrics stay on the
+device.
 """
 
 from __future__ import annotations
@@ -56,6 +57,27 @@ def multistep_lr(base_lr: float, milestones_epochs, steps_per_epoch: int,
     return sched
 
 
+def cosine_warmup_lr(base_lr: float, warmup_epochs: int, total_epochs: int,
+                     steps_per_epoch: int) -> Callable[[int], float]:
+    """Per-epoch cosine with linear warmup (impl.py:76-92,
+    main_train.py:66-80): the step is floored to an epoch, as the
+    reference's per-epoch lambda does, and the arithmetic is fp32 like
+    ``salun.core.train.cosine_warmup_lr``."""
+    warmup = max(int(warmup_epochs), 0)
+    f32 = np.float32
+
+    def sched(step: int) -> float:
+        epoch = int(step) // steps_per_epoch
+        if epoch < warmup:
+            scale = f32(epoch + 1) / f32(max(warmup, 1))
+        else:
+            prog = f32(epoch - warmup) / f32(max(total_epochs - warmup, 1))
+            scale = f32(0.5) * (f32(1.0) + np.cos(f32(np.pi) * prog))
+        return float(f32(f32(base_lr) * f32(scale)))
+
+    return sched
+
+
 def generator_source(gen: torch.Generator, num_classes: int) -> Callable:
     """Randomness for one step, drawn on the generator's device: crop
     offsets and flips first, then labels (the JAX step's ``ka, kl``)."""
@@ -71,31 +93,62 @@ def generator_source(gen: torch.Generator, num_classes: int) -> Callable:
     return draw
 
 
+def add_l1_grad(flat, coeff: float) -> torch.Tensor:
+    """Add the gradient of ``coeff·Σ|θ|`` (``salun/utils/tree.py:52``
+    ``tree_l1``) to the flat grad buffer of ``flat`` (a
+    :class:`~salun_torch.core.masked_opt.FlatParams`); returns Σ|θ|.
+
+    One pass over the flat buffer instead of an autograd term per
+    parameter. The gradient is ``±coeff`` with +coeff at θ = 0, as JAX's
+    ``abs`` has it (torch's ``abs`` gives 0 there, and a zero-initialised
+    bias would miss the first step's pull); ``coeff`` is added to the
+    cross-entropy gradient once, so the sum is the one autograd forms.
+    """
+    p = flat.flat
+    flat.grad.add_(torch.where(p >= 0, coeff, -coeff))
+    return p.abs().sum()
+
+
 def train_step(model, opt, batch: dict, rand: dict, *,
-               random_labels: bool = False) -> dict:
-    """One step on a device batch (always augmented, as every train step
-    of the JAX package's methods is); returns ``{"loss", "acc"}`` tensors."""
-    img = augment(to_float(batch["image"]), rand["offsets"], rand["flips"])
+               random_labels: bool = False, loss_sign: float = 1.0,
+               l1_coeff: Optional[Callable[[int], float]] = None,
+               use_augment: bool = True) -> dict:
+    """One step on a device batch (``salun/core/train.py:92-148``);
+    returns ``{"loss", "acc"}`` tensors.
+
+    ``loss_sign=-1`` gives gradient ascent; ``l1_coeff(step)`` adds
+    α·Σ|θ| at the optimizer's step count before this step (GA_l1, FT_l1;
+    ``opt`` is one of the port's flat-buffer optimizers);
+    ``use_augment=False`` skips crop and flip (``main_train --no-aug``).
+    """
+    img = to_float(batch["image"])
+    if use_augment:
+        img = augment(img, rand["offsets"], rand["flips"])
     label = rand["labels"] if random_labels else batch["label"]
     weight = batch.get("weight")
     model.train()
     opt.zero_grad()
     logits = model(img)
-    loss = cross_entropy(logits, label, weight)
+    loss = loss_sign * cross_entropy(logits, label, weight)
     loss.backward()
+    if l1_coeff is not None:
+        coeff = l1_coeff(opt.count)
+        loss = loss + coeff * add_l1_grad(opt.flat, coeff)
     opt.step()
     return {"loss": loss.detach(),
             "acc": weighted_accuracy(logits.detach(), label, weight)}
 
 
 def run_epoch(model, opt, loader, source: Callable, device, *,
-              random_labels: bool = False) -> Optional[dict]:
-    """One pass over ``loader``; returns the last step's metrics."""
+              random_labels: bool = False, **step_kw) -> Optional[dict]:
+    """One pass over ``loader``; returns the last step's metrics.
+    ``step_kw`` goes to :func:`train_step`."""
     m = None
     for b in loader:
         batch = to_device(b, device)
         rand = source(batch["image"].shape[0], random_labels=random_labels)
-        m = train_step(model, opt, batch, rand, random_labels=random_labels)
+        m = train_step(model, opt, batch, rand, random_labels=random_labels,
+                       **step_kw)
     return m
 
 

@@ -2,9 +2,10 @@
 
 Every dataset is a pair of numpy arrays ``(data uint8 NHWC, targets int64)``,
 as in the JAX package; batches become NCHW torch tensors on the device in
-``salun_torch.data.loader``. Ported readers: CIFAR-10 (python-pickle
-batches) and the deterministic synthetic stand-in. CIFAR-100, SVHN,
-TinyImageNet and ImageNet wait for later slices.
+``salun_torch.data.loader``. Readers parse the standard on-disk formats:
+CIFAR-10/100 python-pickle batches, SVHN ``.mat`` files (scipy), the
+extracted TinyImageNet tree (PIL), plus the deterministic synthetic
+stand-in. ImageNet waits for a later slice.
 """
 
 from __future__ import annotations
@@ -66,6 +67,62 @@ def cifar10(data_dir: str, train: bool = True) -> ArrayDataset:
                         10, "cifar10")
 
 
+def cifar100(data_dir: str, train: bool = True) -> ArrayDataset:
+    """Parse CIFAR-100 python batches (cifar-100-python), fine labels."""
+    base = os.path.join(data_dir, "cifar-100-python")
+    if not os.path.isdir(base):
+        _maybe_extract(data_dir, "cifar-100-python.tar.gz")
+    d = _cifar_unpickle(os.path.join(base, "train" if train else "test"))
+    data = d[b"data"].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+    return ArrayDataset(np.ascontiguousarray(data),
+                        np.asarray(d[b"fine_labels"], np.int64), 100,
+                        "cifar100")
+
+
+def svhn(data_dir: str, train: bool = True) -> ArrayDataset:
+    """Parse SVHN ``train_32x32.mat`` / ``test_32x32.mat``: X is HWCN,
+    label 10 stands for digit 0."""
+    import scipy.io
+
+    fn = os.path.join(data_dir,
+                      "train_32x32.mat" if train else "test_32x32.mat")
+    mat = scipy.io.loadmat(fn)
+    data = mat["X"].transpose(3, 0, 1, 2)  # HWCN → NHWC
+    labels = mat["y"].astype(np.int64).reshape(-1)
+    labels[labels == 10] = 0
+    return ArrayDataset(np.ascontiguousarray(data), labels, 10, "svhn")
+
+
+def tiny_imagenet(data_dir: str, train: bool = True) -> ArrayDataset:
+    """Read the extracted tiny-imagenet-200 tree: classes by sorted wnid
+    (the reference's ImageFolder order, dataset.py:372-430), train images
+    by sorted file name, val images in ``val_annotations.txt`` order."""
+    from PIL import Image
+
+    with open(os.path.join(data_dir, "wnids.txt")) as f:
+        wnids = sorted(f.read().split())
+    cls_of = {w: i for i, w in enumerate(wnids)}
+    files, ys = [], []
+    if train:
+        for w in wnids:
+            img_dir = os.path.join(data_dir, "train", w, "images")
+            for fn in sorted(os.listdir(img_dir)):
+                files.append(os.path.join(img_dir, fn))
+                ys.append(cls_of[w])
+    else:
+        with open(os.path.join(data_dir, "val", "val_annotations.txt")) as f:
+            for line in f:
+                fn, w = line.split("\t")[:2]
+                files.append(os.path.join(data_dir, "val", "images", fn))
+                ys.append(cls_of[w])
+    xs = []
+    for fn in files:
+        with Image.open(fn) as img:
+            xs.append(np.asarray(img.convert("RGB"), np.uint8))
+    return ArrayDataset(np.stack(xs), np.asarray(ys, np.int64), 200,
+                        "tiny_imagenet")
+
+
 def synthetic(n: int = 512, num_classes: int = 10, image_size: int = 32,
               seed: int = 0, class_signal: float = 0.25) -> ArrayDataset:
     """Deterministic learnable synthetic data (per-class mean + noise),
@@ -92,8 +149,9 @@ def synthetic(n: int = 512, num_classes: int = 10, image_size: int = 32,
     return ArrayDataset(data, ys.astype(np.int64), num_classes, "synthetic")
 
 
-REGISTRY = {"cifar10": cifar10}
-NOT_PORTED = ("cifar100", "svhn", "TinyImagenet", "tiny_imagenet", "imagenet")
+REGISTRY = {"cifar10": cifar10, "cifar100": cifar100, "svhn": svhn,
+            "TinyImagenet": tiny_imagenet, "tiny_imagenet": tiny_imagenet}
+NOT_PORTED = ("imagenet",)
 
 
 def load(name: str, data_dir: str, train: bool = True) -> ArrayDataset:

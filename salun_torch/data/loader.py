@@ -37,6 +37,12 @@ class BatchIterator:
     def __len__(self):
         return (len(self.ds) + self.batch_size - 1) // self.batch_size
 
+    def set_epoch(self, epoch: int) -> None:
+        """Pin the shuffle order of the next pass to ``epoch``: each pass's
+        order is a pure function of (seed, epoch), so a resumed run sees
+        the orders a straight run does."""
+        self._epoch = int(epoch)
+
     def __iter__(self) -> Iterator[dict]:
         n = len(self.ds)
         if self.shuffle:

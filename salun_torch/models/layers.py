@@ -43,14 +43,16 @@ def batch_norm(channels: int) -> nn.BatchNorm2d:
 
 
 def init_weights(module: nn.Module, generator: torch.Generator | None) -> None:
-    """Seeded torchvision-style init: Kaiming-normal (fan_out) convs,
-    BatchNorm weight 1 / bias 0, Linear weights U(±1/sqrt(fan_in))."""
+    """Seeded torchvision-style init: Kaiming-normal (fan_out) convs with
+    bias 0, BatchNorm weight 1 / bias 0, Linear weights U(±1/sqrt(fan_in))."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, nn.Conv2d):
                 nn.init.kaiming_normal_(m.weight, mode="fan_out",
                                         nonlinearity="relu",
                                         generator=generator)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
             elif isinstance(m, nn.BatchNorm2d):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)

@@ -2,8 +2,9 @@
 
 akamaster-style (Classification/models/ResNets.py:82-191): 16→32→64
 channels, option-A shortcut = stride-2 subsample + zero-padded channels
-(ResNets.py:98-109). Names follow the JAX model through
-``salun.ckpt.export_resnet`` (``layer1.0.conv1``, ``fc``).
+(ResNets.py:98-109); resnet20s/32s/44s/56s/110s have 3/5/7/9/18 blocks a
+stage. Names follow the JAX model through ``salun.ckpt.export_resnet``
+(``layer1.0.conv1``, ``fc``).
 """
 
 from __future__ import annotations
@@ -68,8 +69,19 @@ class ResNetS(nn.Module):
         return self.fc(x.mean(dim=(2, 3)))
 
 
-def resnet20s(num_classes: int = 10,
+def _resnet_s(n_blocks: int):
+    def build(num_classes: int = 10,
               generator: torch.Generator | None = None) -> ResNetS:
-    model = ResNetS(3, num_classes=num_classes)
-    init_weights(model, generator)
-    return model
+        model = ResNetS(n_blocks, num_classes=num_classes)
+        init_weights(model, generator)
+        return model
+
+    build.__name__ = f"resnet{6 * n_blocks + 2}s"
+    return build
+
+
+resnet20s = _resnet_s(3)
+resnet32s = _resnet_s(5)
+resnet44s = _resnet_s(7)
+resnet56s = _resnet_s(9)
+resnet110s = _resnet_s(18)

@@ -41,7 +41,7 @@ def test_cifar10_reader_matches(rng, tmp_path):
         _same_ds(D.cifar10(str(tmp_path), train), JD.cifar10(str(tmp_path),
                                                             train))
     with pytest.raises(NotImplementedError):
-        D.load("cifar100", str(tmp_path))
+        D.load("imagenet", str(tmp_path))
 
 
 @pytest.mark.parametrize("class_to_replace,num", [(-1, 40), (3, None),

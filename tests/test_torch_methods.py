@@ -97,7 +97,11 @@ def test_registry_and_raw():
     assert get_unlearn_method("RL") is RL
     model = torch.nn.Linear(2, 2)
     assert raw({}, model, UnlearnConfig(), device="cpu")[0] is model
-    assert len(NOT_PORTED) == 15
+    # the ten methods of a later slice (ROADMAP B10)
+    assert sorted(NOT_PORTED) == sorted([
+        "fisher", "fisher_new", "wfisher", "FT_prune", "FT_prune_bi",
+        "GA_prune", "GA_prune_bi", "boundary_expanding", "boundary_shrink",
+        "RL_proximal"])
     for name in NOT_PORTED:
         with pytest.raises(NotImplementedError, match="not ported"):
             get_unlearn_method(name)

@@ -101,5 +101,5 @@ def test_create_model_seeded_and_unported_archs():
     for (n, x), y in zip(a.state_dict().items(), b.state_dict().values()):
         assert torch.equal(x, y), n
     assert not torch.equal(a.conv1.weight, c.conv1.weight)
-    with pytest.raises(NotImplementedError):
-        create_model("resnet50", 10)
+    with pytest.raises(KeyError, match="unknown arch"):
+        create_model("resnet51", 10)
