@@ -13,8 +13,10 @@ Phases, each of which fails the script (exit code 1) when it fails:
    checkout's sources (one ``nvcc`` per source, started together).
 3. Kernel vs plain (TF32 off): K1 (fused masked SGD) against its plain
    PyTorch version at N = 11,173,962 (ResNet-18 CIFAR, the main path's
-   shape), 15,334,948 (vgg16_bn, 100 classes) and 23,705,252 (ResNet-50,
-   CIFAR stem, 100 classes), one kernel-table row each, 50%-dense mask,
+   shape), 15,334,948 (vgg16_bn, 100 classes), 23,705,252 (ResNet-50,
+   CIFAR stem, 100 classes) and 11,174,475 (ResNet-18 with
+   boundary_expanding's 11-way head: odd, so the float4 path has a
+   3-element tail), one kernel-table row each, 50%-dense mask,
    two learning rates: bitwise equal (``torch.equal``). K2, K3a and K3b (flash attention forward, dq, dk/dv)
    against their plain versions at the DDPM path's shapes ([B, N, D] =
    [128, 256, 256], [256, 256, 256], [128, 16, 256]) and ragged ones (N =
@@ -74,6 +76,24 @@ Phases, each of which fails the script (exit code 1) when it fails:
      model's parameter count (printed) equals the constant of K1's row and
      the mask's size, the mask is exact-k, θ₀ pinned bitwise, K1
      launches = ⌈(forget + retain) / bs⌉, metrics finite.
+4c. The exact k-th value (``salun_torch.dist.topk``) on the card against
+   ``torch.sort``'s, bitwise, at N = 11,173,962 for k = 1, ⌈N/2⌉, N (int
+   and tensor k), on normals and on a 16-level grid of ties. Then the ten
+   other methods through the CLIs on phase 4's data, ResNet-18 and 0.5
+   mask: ``main_random --unlearn boundary_shrink | boundary_expanding |
+   FT_prune | wfisher`` and ``main_forget --unlearn fisher | fisher_new |
+   RL_proximal | FT_prune_bi | GA_prune_bi | GA_prune``. Cuts, printed: 1
+   epoch each, FT_prune_bi and GA_prune_bi 2 (one prune round); fisher and
+   fisher_new over the first 2,560 retain images. Checks: K1 launches
+   once a step of boundary_shrink (4), boundary_expanding (4, on its own
+   kernel-table row, the widened model's 11,174,475 parameters checked)
+   and FT_prune (39), never on the other seven; masked-out weights equal
+   θ₀ bitwise after every main_random call (on the widened model over the
+   old rows); RL_proximal leaves at least the last step's ratio of weights
+   at θ_init; FT_prune_bi, GA_prune_bi and GA_prune zero exactly their
+   prune count of conv weights; every weight and metric finite. Prints
+   seconds per call and its unlearning loop, ms per retain batch of the
+   fisher methods, UA/RA/TA and SVC-MIA.
 5. DDPM chain at full width: the model block of
    ``configs/ddpm/cifar10_saliency_unlearn.yml`` (38,632,323 parameters,
    seeded random weights written as a reference ``ckpts/ckpt.pth``), a
@@ -110,7 +130,8 @@ Phases, each of which fails the script (exit code 1) when it fails:
    and VAE (forward hooks), times their launches.
 7. A ``{"kernels": [...]}`` line (launches per path and in all; K1's
    ResNet-18 row counts the ResNet-18 paths, its vgg16_bn and ResNet-50
-   rows their RL paths), the card's name and power limit, and as the last
+   rows their RL paths, its boundary_expanding row that call), the card's
+   name and power limit, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Scratch files go to ``build/chip_smoke/`` inside the checkout.
@@ -133,10 +154,12 @@ WORK = ROOT / "build" / "chip_smoke"
 N_K1 = 11_173_962          # ResNet-18 (CIFAR stem, 10 classes) parameters
 N_VGG16_BN = 15_334_948    # vgg16_bn, 100 classes
 N_RESNET50 = 23_705_252    # ResNet-50 (CIFAR stem), 100 classes
+N_K1_WIDE = N_K1 + 513     # boundary_expanding's ResNet-18 with 11 outputs
 # K1's rows: (kernel-table name, N); the first is the ResNet-18 paths'
 K1_NAME = "K1 masked_sgd_update"
 K1_ROWS = [(K1_NAME, N_K1), (f"{K1_NAME} vgg16_bn", N_VGG16_BN),
-           (f"{K1_NAME} resnet50", N_RESNET50)]
+           (f"{K1_NAME} resnet50", N_RESNET50),
+           (f"{K1_NAME} boundary_expanding", N_K1_WIDE)]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12         # H100 SXM fp32, outside the tensor cores
 TF32X3_FLOPS = 495e12 / 3  # H100 SXM TF32 dense, three products (3xTF32)
@@ -145,6 +168,8 @@ TF32X3_FLOPS = 495e12 / 3  # H100 SXM TF32 dense, three products (3xTF32)
 N_TRAIN, N_TEST, N_FORGET = 12_000, 2_000, 1_000
 BATCH, LR, EPOCHS = 256, 0.013, 1
 TRAIN_EPOCHS = 2  # main_train: straight, and 1 + --resume
+PRUNE_BI_EPOCHS = 2  # *_prune_bi prune when (E - epoch) % 2 == 0
+FISHER_RETAIN = 2_560  # fisher/fisher_new: retain images (per-sample grads)
 
 # Flash attention: the DDPM path's [B, N, D] (bs 128 unlearning, the CFG-
 # doubled bs 256 of mask generation, the 4x4 mid block) and ragged shapes
@@ -703,7 +728,8 @@ def write_cifar10_files(data_dir: Path, train, test=None) -> None:
 
 def check_pinned(mask: dict, before: Path, after: Path, what: str) -> None:
     """Every masked-out weight of the checkpoint ``after`` equals the one
-    of ``before`` bitwise, and some kept weight moved."""
+    of ``before`` bitwise, and some kept weight moved (on a widened
+    output layer, over the rows the mask covers)."""
     import torch
 
     from salun_torch.ckpt import load_state_dict
@@ -711,7 +737,9 @@ def check_pinned(mask: dict, before: Path, after: Path, what: str) -> None:
     theta0, out = load_state_dict(str(before)), load_state_dict(str(after))
     moved = 0
     for name, m in mask.items():
-        out_w, in_w = out[name], theta0[name]
+        # a widened output layer (boundary_expanding): its old rows
+        out_w = out[name][tuple(slice(0, s) for s in m.shape)]
+        in_w = theta0[name]
         if not torch.equal(out_w[m == 0], in_w[m == 0]):
             fail(f"{what}: {name}: a masked-out weight left θ₀")
         moved += int((out_w[m > 0] != in_w[m > 0]).sum())
@@ -1019,6 +1047,175 @@ def cifar100_arch_paths(device, k1_rows: dict) -> dict:
         log(f"{what}: {EPOCHS * (len(forget) + len(retain)) / sec:.1f} "
             f"img/s cold")
         by_path[what] = {row: launches}
+    return by_path
+
+
+# ----------------------------------------------------------------- phase 4c
+
+# (method, CLI, epochs): the ten methods of the slice on phase 4's data,
+# ResNet-18 and 0.5 mask; main_random where the method reads the mask
+REMAINING = [("boundary_shrink", "main_random", EPOCHS),
+             ("boundary_expanding", "main_random", EPOCHS),
+             ("FT_prune", "main_random", EPOCHS),
+             ("wfisher", "main_random", EPOCHS),
+             ("fisher", "main_forget", EPOCHS),
+             ("fisher_new", "main_forget", EPOCHS),
+             ("RL_proximal", "main_forget", EPOCHS),
+             ("FT_prune_bi", "main_forget", PRUNE_BI_EPOCHS),
+             ("GA_prune_bi", "main_forget", PRUNE_BI_EPOCHS),
+             ("GA_prune", "main_forget", EPOCHS)]
+
+
+def kth_on_card(device) -> None:
+    """The exact k-th value on the card equals ``torch.sort``'s, bitwise,
+    at the ResNet-18 N, for k = 1, ⌈N/2⌉, N and a tensor k, on normals and
+    on a tensor with planted ties (a 16-level grid)."""
+    import torch
+
+    from salun_torch.dist.topk import kth_largest
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    n = N_K1
+    for what, x in (
+            ("normal", torch.randn(n, generator=gen, device=device)),
+            ("ties", torch.randint(0, 16, (n,), generator=gen,
+                                   device=device).float() / 16)):
+        ordered = torch.sort(x, descending=True).values
+        for k in (1, -(-n // 2), n):
+            for kk in (k, torch.tensor(k, device=device)):
+                got = kth_largest(x, kk)
+                if not torch.equal(got.reshape(1), ordered[k - 1:k]):
+                    fail(f"kth_largest({what}, {k}) = {float(got)}, "
+                         f"torch.sort gives {float(ordered[k - 1])}")
+        ms = cuda_time_ms(lambda: kth_largest(x, n // 2), 20, warmup=2)
+        log(f"kth_largest on the card equals torch.sort's k-th value "
+            f"bitwise at N = {n} ({what}; k = 1, N/2, N, int and tensor); "
+            f"{ms:.3f} ms a call")
+
+
+def _cut_retain(n_keep: int):
+    """``main_random``'s loader factory with the retain loader cut to its
+    first ``n_keep`` images (the fisher calls' cut), as a context."""
+    import contextlib
+
+    import numpy as np
+
+    import salun_torch.cli.main_random as cli
+    from salun_torch.data.loader import BatchIterator
+
+    orig = cli.build_unlearn_loaders
+
+    def cut(args, *rest):
+        loaders, forget, retain = orig(args, *rest)
+        retain = retain.select(np.arange(min(n_keep, len(retain))))
+        loaders["retain"] = BatchIterator(retain, args.batch_size,
+                                          shuffle=True, seed=args.seed)
+        return loaders, forget, retain
+
+    @contextlib.contextmanager
+    def ctx():
+        cli.build_unlearn_loaders = cut
+        try:
+            yield
+        finally:
+            cli.build_unlearn_loaders = orig
+
+    return ctx()
+
+
+def _conv_zeros(sd: dict) -> tuple:
+    conv = [v for v in sd.values() if v.dim() == 4]
+    return (sum(int((v == 0).sum()) for v in conv),
+            sum(v.numel() for v in conv))
+
+
+def remaining_methods_paths(device, k1_rows: dict) -> dict:
+    """The ten methods of this slice through the CLIs on phase 4's data,
+    ResNet-18 and 0.5 mask, each CLI call counted on its own; returns
+    K1's launches per call (boundary_expanding's on the widened model's
+    row)."""
+    import torch
+
+    from salun_torch.ckpt import load_mask, load_state_dict
+    from salun_torch.cli import main_forget, main_random
+    from salun_torch.core.methods import UnlearnConfig
+    from salun_torch.core.methods.prune_variants import _bi_round_rate
+    from salun_torch.core.methods.rl_proximal import proximal_ratio
+
+    data_dir, model_path = WORK / "data", WORK / "resnet18_seed0.pt"
+    mask_file = WORK / "out" / "with_0.5.pt"
+    mask = load_mask(str(mask_file))
+    theta0 = load_state_dict(str(model_path))
+    out_dir = WORK / "remaining"
+    common = ["--dataset", "cifar10", "--data", str(data_dir),
+              "--arch", "resnet18", "--model_path", str(model_path),
+              "--batch_size", str(BATCH), "--num_indexes_to_replace",
+              str(N_FORGET), "--class_to_replace", "-1",
+              "--device", str(device), "--unlearn_lr", str(LR),
+              "--save_dir", str(out_dir)]
+    loaders, _, _ = unlearn_loaders(common)
+    n_f, n_r = len(loaders["forget"]), len(loaders["retain"])
+    log(f"phase 4c cuts: 1 epoch each (of 10), FT_prune_bi and "
+        f"GA_prune_bi {PRUNE_BI_EPOCHS} (one prune round); fisher and "
+        f"fisher_new over the first {FISHER_RETAIN} retain images (of "
+        f"{len(loaders['retain'].ds)})")
+    cfg = UnlearnConfig()
+    by_path = {}
+    for method, cli_name, epochs in REMAINING:
+        cli = main_random if cli_name == "main_random" else main_forget
+        argv = common + ["--unlearn", method,
+                         "--unlearn_epochs", str(epochs)]
+        if cli is main_random:
+            argv += ["--mask_path", str(mask_file)]
+        what = f"{cli_name} --unlearn {method}"
+        if method.startswith("fisher"):
+            with _cut_retain(FISHER_RETAIN):
+                results, launches = _unlearn_call(cli, argv, what)
+            batches = -(-FISHER_RETAIN // BATCH)
+            sec = results["seconds"]["unlearn"]
+            log(f"{what}: {1e3 * sec / batches:.3f} ms per retain batch of "
+                f"{BATCH} ({batches} batches, cold)")
+        else:
+            results, launches = _unlearn_call(cli, argv, what)
+        sd = load_state_dict(str(out_dir / f"{method}_checkpoint.pt"))
+        if not all(bool(torch.isfinite(v).all()) for v in sd.values()
+                   if v.is_floating_point()):
+            fail(f"{what}: a non-finite weight")
+        steps = {"boundary_shrink": n_f, "boundary_expanding": n_f,
+                 "FT_prune": n_r}.get(method, 0) * epochs
+        row = K1_NAME
+        if method == "boundary_expanding":
+            row = f"{K1_NAME} boundary_expanding"
+            n_wide = sum(sd[k].numel() for k in mask)
+            if n_wide != N_K1_WIDE:
+                fail(f"{what}: the widened model has {n_wide} parameters, "
+                     f"want {N_K1_WIDE}")
+        _expect_launches(what, launches, steps, results, k1_rows[row])
+        by_path[what] = {row: launches}
+        if cli is main_random:
+            check_pinned(mask, model_path,
+                         out_dir / f"{method}_checkpoint.pt", what)
+        if method == "RL_proximal":
+            n = sum(v.numel() for v in mask.values())
+            total = epochs * (n_f + n_r)
+            want = proximal_ratio(cfg, n, total, (epochs - 1) * (n_f + n_r))
+            pinned = sum(int((sd[k] == theta0[k]).sum()) for k in mask)
+            if pinned < want:
+                fail(f"{what}: {pinned} weights at θ_init, want >= {want}")
+            log(f"{what}: {pinned} of {n} weights at θ_init (>= the last "
+                f"step's ratio {want})")
+        if method in ("FT_prune", "FT_prune_bi", "GA_prune_bi", "GA_prune"):
+            zeros, n_conv = _conv_zeros(sd)
+            if method == "FT_prune":
+                log(f"{what}: natural conv sparsity "
+                    f"{100 * zeros / n_conv:.4f}%")
+                continue
+            c = UnlearnConfig(unlearn_epochs=epochs)
+            px = 1.0 - c.rate if method == "GA_prune" else _bi_round_rate(c)
+            if zeros != round(px * n_conv):
+                fail(f"{what}: {zeros} zero conv weights, want "
+                     f"round({px} x {n_conv}) = {round(px * n_conv)}")
+            log(f"{what}: exactly {zeros} of {n_conv} conv weights pruned")
     return by_path
 
 
@@ -1629,6 +1826,8 @@ def main() -> None:
     by_path.update(methods_paths(device, k1_ms[K1_NAME]))
     by_path.update(train_resume_path(device))
     by_path.update(cifar100_arch_paths(device, k1_ms))
+    kth_on_card(device)
+    by_path.update(remaining_methods_paths(device, k1_ms))
     by_path["ddpm"] = ddpm_path(device, attn_ms)
     by_path["sd"] = sd_path(device, sd_attn_rows)
     log(f"TF32 on the main paths: {tf32_settings()}")

@@ -2,7 +2,7 @@
 (counterpart of ``salun/cli/main_forget.py``; reference
 Classification/main_forget.py:15-183). It is ``main_random`` with the
 method dispatched mask-free (main_forget.py:135), so every step is plain
-SGD and kernel K1 is never launched.
+SGD and kernel K1 is never launched. It runs every one of the 17 names.
 
 Usage: python -m salun_torch.cli.main_forget --unlearn FT \
            --model_path model.pt --unlearn_lr 0.01 --unlearn_epochs 10 \

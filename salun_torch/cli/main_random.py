@@ -2,11 +2,15 @@
 ``salun/cli/main_random.py``; reference Classification/main_random.py:
 15-188).
 
-Loads θ and the saliency mask, runs the unlearning method with the mask
-(RL, GA, GA_l1, FT, FT_l1: masked SGD, one launch of kernel K1 per step
-on the card; ``retrain`` starts from the seeded init and ignores θ and
-the mask), then evaluates UA/RA/TA and the SVC-MIA forget efficacy and
-writes ``{unlearn}_checkpoint.pt`` and ``{unlearn}_eval_result.json``.
+Loads θ and the saliency mask, runs any of the 17 unlearning methods
+with the mask (RL, GA, GA_l1, FT, FT_l1, FT_prune, boundary_shrink and
+boundary_expanding: masked SGD, one launch of kernel K1 per step on the
+card; wfisher multiplies its perturbation by the mask; ``retrain``
+starts from the seeded init and ignores θ and the mask; the others ignore
+the mask), then evaluates UA/RA/TA and the SVC-MIA forget efficacy of the
+model the method returns (for boundary_expanding the model with one more
+output) and writes ``{unlearn}_checkpoint.pt`` and
+``{unlearn}_eval_result.json``.
 With ``--resume`` and an existing ``{unlearn}_checkpoint.pt``, the
 unlearned model is loaded and the unlearning loop skipped; the evaluation
 is computed anew (main_random.py:122-126). ``main_forget`` is this CLI

@@ -1,28 +1,43 @@
 """Unlearning-method registry (counterpart of
 ``salun/core/methods/__init__.py``; reference
-Classification/unlearn/__init__.py:22-61).
+Classification/unlearn/__init__.py:22-61): the same 17 names plus ``raw``.
 
-Ported: ``raw``, ``RL``, ``GA``, ``GA_l1``, ``FT``, ``FT_l1`` and
-``retrain``. The other ten names of the reference registry are listed and
-raise ``NotImplementedError`` until they are ported.
+Every method is ``method(loaders, model, cfg, mask=None, *, device,
+source=None, ...) -> (model, optimizer or None)`` and updates ``model`` in
+place, except ``boundary_expanding``, which returns the widened model.
 """
 
+from .boundary import boundary_expanding, boundary_shrink
 from .common import (UnlearnConfig, make_unlearn_optimizer, mask_tensors,
-                     snapshot_params)
+                     reset_optimizer, snapshot_params)
+from .fisher import fisher, fisher_new
 from .iterative import FT, FT_l1, GA, GA_l1, RL, l1_schedule, raw, retrain
+from .prune_variants import FT_prune, FT_prune_bi, GA_prune, GA_prune_bi
+from .rl_proximal import RL_proximal
+from .wfisher import Wfisher
 
-_METHODS = {"raw": raw, "RL": RL, "GA": GA, "GA_l1": GA_l1, "FT": FT,
-            "FT_l1": FT_l1, "retrain": retrain}
-
-NOT_PORTED = (
-    "fisher", "fisher_new", "wfisher", "FT_prune", "FT_prune_bi", "GA_prune",
-    "GA_prune_bi", "boundary_expanding", "boundary_shrink", "RL_proximal",
-)
+_METHODS = {
+    "raw": raw,
+    "RL": RL,
+    "GA": GA,
+    "GA_l1": GA_l1,
+    "FT": FT,
+    "FT_l1": FT_l1,
+    "fisher": fisher,
+    "fisher_new": fisher_new,
+    "retrain": retrain,
+    "wfisher": Wfisher,
+    "FT_prune": FT_prune,
+    "FT_prune_bi": FT_prune_bi,
+    "GA_prune": GA_prune,
+    "GA_prune_bi": GA_prune_bi,
+    "boundary_expanding": boundary_expanding,
+    "boundary_shrink": boundary_shrink,
+    "RL_proximal": RL_proximal,
+}
 
 
 def get_unlearn_method(name: str):
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"unlearn method {name} is not ported yet")
     if name not in _METHODS:
         raise NotImplementedError(
             f"Unlearn method {name} not implemented! Available: "
@@ -30,6 +45,9 @@ def get_unlearn_method(name: str):
     return _METHODS[name]
 
 
-__all__ = ["FT", "FT_l1", "GA", "GA_l1", "NOT_PORTED", "RL", "UnlearnConfig",
-           "get_unlearn_method", "l1_schedule", "make_unlearn_optimizer",
-           "mask_tensors", "raw", "retrain", "snapshot_params"]
+__all__ = ["FT", "FT_l1", "FT_prune", "FT_prune_bi", "GA", "GA_l1",
+           "GA_prune", "GA_prune_bi", "RL", "RL_proximal", "UnlearnConfig",
+           "Wfisher", "boundary_expanding", "boundary_shrink", "fisher",
+           "fisher_new", "get_unlearn_method", "l1_schedule",
+           "make_unlearn_optimizer", "mask_tensors", "raw",
+           "reset_optimizer", "retrain", "snapshot_params"]

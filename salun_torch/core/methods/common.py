@@ -97,3 +97,12 @@ def make_unlearn_optimizer(cfg: UnlearnConfig, model: torch.nn.Module,
                            mask=flat_mask)
     return MaskedSGD(flat, sched, cfg.momentum, cfg.weight_decay,
                      mask=flat_mask, theta0=flat.flatten(theta0))
+
+
+def reset_optimizer(opt) -> None:
+    """A fresh optimizer state for a new phase (``reset_opt_state``,
+    ``salun/core/methods/common.py:83``): momentum zero and the step count,
+    which drives the schedule, back to 0. The parameters stay as they
+    are."""
+    opt.trace.zero_()
+    opt.count = 0

@@ -1,8 +1,10 @@
 """Classification trainer (counterpart of ``salun/core/train.py``).
 
 One train step augments on the device (unless asked not to), optionally
-uses random labels, computes ``loss_sign·CE + l1_coeff(step)·Σ|θ|`` and
-runs the optimizer step (the masked one launches K1). Randomness comes
+uses random labels or a prune mask on the forward, computes
+``loss_sign·CE + l1_coeff(step)·Σ|θ|`` and runs the optimizer step (the
+masked one launches K1). :func:`per_sample_grads` gives per-sample
+gradients in eval mode (the fisher methods). Randomness comes
 from a *source*: a callable ``(batch_size, *, random_labels) -> dict``
 giving ``offsets``/``flips`` (augment) and, for random labels, ``labels``.
 The default source draws from a ``torch.Generator``; the tests pass one
@@ -12,11 +14,12 @@ device.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.func import functional_call, grad, vmap
 
 from salun_torch.data.loader import augment, draw_augment, to_device, to_float
 
@@ -112,7 +115,8 @@ def add_l1_grad(flat, coeff: float) -> torch.Tensor:
 def train_step(model, opt, batch: dict, rand: dict, *,
                random_labels: bool = False, loss_sign: float = 1.0,
                l1_coeff: Optional[Callable[[int], float]] = None,
-               use_augment: bool = True) -> dict:
+               use_augment: bool = True,
+               prune_mask: Optional[dict] = None) -> dict:
     """One step on a device batch (``salun/core/train.py:92-148``);
     returns ``{"loss", "acc"}`` tensors.
 
@@ -120,6 +124,11 @@ def train_step(model, opt, batch: dict, rand: dict, *,
     α·Σ|θ| at the optimizer's step count before this step (GA_l1, FT_l1;
     ``opt`` is one of the port's flat-buffer optimizers);
     ``use_augment=False`` skips crop and flip (``main_train --no-aug``).
+    ``prune_mask`` (``{name: 0/1}`` over every parameter) makes the
+    forward read ``p·m`` through ``functional_call``, so pruned
+    coordinates get zero gradient by the chain rule while weight decay
+    still sees the raw ``p`` (``make_pruned_train_step``,
+    ``salun/core/methods/prune_variants.py:37-66``).
     """
     img = to_float(batch["image"])
     if use_augment:
@@ -128,7 +137,12 @@ def train_step(model, opt, batch: dict, rand: dict, *,
     weight = batch.get("weight")
     model.train()
     opt.zero_grad()
-    logits = model(img)
+    if prune_mask is None:
+        logits = model(img)
+    else:
+        logits = functional_call(
+            model, {n: p * prune_mask[n].to(p.dtype)
+                    for n, p in model.named_parameters()}, (img,))
     loss = loss_sign * cross_entropy(logits, label, weight)
     loss.backward()
     if l1_coeff is not None:
@@ -150,6 +164,28 @@ def run_epoch(model, opt, loader, source: Callable, device, *,
         m = train_step(model, opt, batch, rand, random_labels=random_labels,
                        **step_kw)
     return m
+
+
+def per_sample_grads(model, sample_loss: Callable, img: torch.Tensor,
+                     label: torch.Tensor, chunk: int = 32) -> Iterator:
+    """Per-sample gradients of ``sample_loss(logits_row, label)`` with
+    respect to every parameter, in eval mode (BatchNorm on its running
+    statistics), from ``torch.func.vmap(grad)`` over ``functional_call``.
+
+    Yields ``(start, {name: [b, *shape]})`` for chunks of at most
+    ``chunk`` samples: a full-width ResNet-18's per-sample grads take
+    45 MB a sample in fp32."""
+    model.eval()
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    buffers = dict(model.named_buffers())
+
+    def one(p, x, y):
+        out = functional_call(model, (p, buffers), (x[None],))
+        return sample_loss(out[0], y)
+
+    batched = vmap(grad(one), in_dims=(None, 0, 0))
+    for lo in range(0, img.shape[0], chunk):
+        yield lo, batched(params, img[lo:lo + chunk], label[lo:lo + chunk])
 
 
 @torch.no_grad()

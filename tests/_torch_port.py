@@ -6,6 +6,7 @@ replay the JAX train step's random draws so both sides see the same ones.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 # torch imports torch._dynamo lazily, at the first optimizer it builds. A
 # test elsewhere patches os.path.exists while a library probes an optional
@@ -18,6 +19,19 @@ import torch._dynamo  # noqa: F401
 from salun.models import create_model as jax_create_model
 from salun_torch.ckpt import state_dict_from_jax
 from salun_torch.models import create_model
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """torch on one CPU thread for a test module (import it into the
+    module to use it). The suite runs several workers at once; torch's
+    default of one OpenMP thread a core then oversubscribes the host, and
+    a run of many small ops (a batch-1 gradient stream, a CLI call)
+    measured 100× slower than on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def jax_model_and_vars(arch, rng, num_classes=10, seed=0):
@@ -95,6 +109,33 @@ def jax_key_source(key, num_classes):
         if random_labels:
             out["labels"] = torch.from_numpy(labels.astype(np.int64))
         return out
+
+    return draw
+
+
+def jax_augment_draws(k, batch_size):
+    """The crop offsets and flips ``salun.data.loader.augment(k, ·)``
+    draws for a batch, as a port source returns them."""
+    kc, kf = jax.random.split(k)
+    offsets = np.array(jax.random.randint(kc, (batch_size, 2), 0, 9))
+    flips = np.array(jax.random.bernoulli(kf, 0.5, (batch_size,)))
+    return {"offsets": torch.from_numpy(offsets.astype(np.int64)),
+            "flips": torch.from_numpy(flips)}
+
+
+def jax_augment_source(key, calls=None):
+    """A source for the port's augment-only draws that replays the JAX
+    chain ``key, k = split(key); augment(k, ·)``, one link a call (the
+    FIM and gradient streams of fisher and wfisher). ``calls``, a list,
+    gets each call's batch size."""
+    state = {"key": key}
+
+    def draw(batch_size, *, random_labels=False):
+        assert not random_labels
+        if calls is not None:
+            calls.append(batch_size)
+        state["key"], k = jax.random.split(state["key"])
+        return jax_augment_draws(k, batch_size)
 
     return draw
 

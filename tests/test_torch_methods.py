@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+import salun.core.methods as JaxMethods
 from _torch_port import jax_key_source, jax_model_and_vars, port_twin
 from salun.core.methods import RL as jax_RL
 from salun.core.methods import UnlearnConfig as JaxConfig
@@ -36,8 +37,7 @@ from salun.core.train import TrainState
 from salun.data import datasets as JD
 from salun.data import loader as JL
 from salun_torch.ckpt import mask_from_jax, state_dict_from_jax
-from salun_torch.core.methods import (NOT_PORTED, RL, UnlearnConfig,
-                                      get_unlearn_method, raw)
+from salun_torch.core.methods import RL, UnlearnConfig, get_unlearn_method, raw
 from salun_torch.data import datasets as D
 from salun_torch.data import loader as L
 
@@ -97,14 +97,9 @@ def test_registry_and_raw():
     assert get_unlearn_method("RL") is RL
     model = torch.nn.Linear(2, 2)
     assert raw({}, model, UnlearnConfig(), device="cpu")[0] is model
-    # the ten methods of a later slice (ROADMAP B10)
-    assert sorted(NOT_PORTED) == sorted([
-        "fisher", "fisher_new", "wfisher", "FT_prune", "FT_prune_bi",
-        "GA_prune", "GA_prune_bi", "boundary_expanding", "boundary_shrink",
-        "RL_proximal"])
-    for name in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_unlearn_method(name)
+    # every name of the reference registry is ported
+    for name in JaxMethods._METHODS:
+        assert callable(get_unlearn_method(name)), name
     with pytest.raises(NotImplementedError):
         get_unlearn_method("nonsense")
     assert {f.name for f in dataclasses.fields(UnlearnConfig)} == {

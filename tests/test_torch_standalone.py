@@ -37,7 +37,13 @@ def test_importing_every_port_module_loads_no_jax():
               "salun_torch.ckpt.sd_import", "salun_torch.cli.sd_train",
               "salun_torch.cli.sd_generate_images",
               "salun_torch.cli.main_train", "salun_torch.cli.main_forget",
-              "salun_torch.evalx.mia", "salun_torch.models.vgg"):
+              "salun_torch.evalx.mia", "salun_torch.models.vgg",
+              "salun_torch.dist.topk", "salun_torch.core.pruner",
+              "salun_torch.core.omp", "salun_torch.core.methods.fisher",
+              "salun_torch.core.methods.wfisher",
+              "salun_torch.core.methods.boundary",
+              "salun_torch.core.methods.rl_proximal",
+              "salun_torch.core.methods.prune_variants"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
