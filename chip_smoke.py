@@ -45,7 +45,10 @@ Phases, each of which fails the script (exit code 1) when it fails:
    for K4b). K2 at the SD U-Net's
    self- and cross-attention shapes ([32, N, N or 77, D] for N = 4096,
    1024, 256, 64 and D = 40, 80, 160, 160) with K3a/K3b there, and K2 at
-   the VAE's D = 512 ([4, 4096, 4096, 512]). Saliency masks on the card
+   the VAE's D = 512 ([4, 4096, 4096, 512]). K2, K3a and K3b at the
+   STL-10 U-Net's mid block [128, 16, 16, 512] the same way, K3a and K3b
+   there on kernel rows of their own, with the SDPA backend PyTorch picks
+   at each of the DDPM path's shapes named. Saliency masks on the card
    against the CPU's on a heavily tied input: bitwise.
 4. Classification main path at full width: synthetic CIFAR-shaped data
    written in the CIFAR-10 file format, a seeded ResNet-18, then the
@@ -108,6 +111,31 @@ Phases, each of which fails the script (exit code 1) when it fails:
    attention sites per U-Net forward); losses finite; samples finite and
    in [0, 1]. Prints the mask-generation seconds, the unlearning ms per
    step over steps 2–20 and the sampling seconds.
+5b. The rest of DDPM training and sampling through the port's CLIs, at
+   the full width of ``configs/ddpm/cifar10_train.yml`` (35.7M parameters,
+   EMA 0.9999) on phase 5's synthetic CIFAR files: ``ddpm_train --mode
+   train`` 20 steps, ``retrain`` 20 steps, ``train`` 10 steps then
+   ``--resume`` to 20 (cuDNN deterministic for the straight run and the
+   pair), ``ddpm_fim`` (``configs/ddpm/cifar10_fim.yml``) over 32 images
+   at 16 timesteps, batch 8, the SA remember set (16 samples of each kept
+   class by ``ddpm_sample``), ``--mode forget``
+   (``configs/ddpm/cifar10_forget.yml``) 20 steps, ``ddpm_sample
+   sample_fid`` (2 classes × 16), ``sample_visualization`` and
+   ``sample_trajectory`` at 50 DDIM steps, and ``ddpm_save_base``. Then
+   STL-10 at the full width of ``configs/ddpm/stl10_train.yml`` (64x64,
+   ch_mult [1, 2, 2, 2, 4]; the mid block's attention at D = 512) on
+   synthetic ``stl10_binary/train_{X,y}.bin`` at 96x96, resized to 64:
+   ``train`` 20 steps, ``generate_mask``, 2 classes × 16 samples. Each
+   call's K2/K3a/K3b launches are counted on their own and must be what
+   the call implies (the FIM's vmapped gradients one launch a site a
+   timestep batch; K3a/K3b at D = 512 once a train step and a mask batch
+   on STL-10, counted apart); the resumed state (model, Adam state, step,
+   EMA) equals the straight run's bitwise; the EMA differs from the
+   parameters; retrain never sees class 0, nor does forget's remember
+   set; the FIM is finite and non-negative; losses and images finite,
+   images in [0, 1]; ``ddpm_save_base`` writes 500 PNGs of each kept
+   class. Prints ms per step over steps 2–20 of every training mode, the
+   FIM seconds, the sampling seconds and the U-Net parameter counts.
 6. SD chain at full width: ``configs/sd/v1-inference.yaml`` (U-Net
    859,520,964, VAE 83,653,863, CLIP text 123,060,480 parameters) with
    seeded random weights written as a CompVis ``.ckpt`` (no layer at zero,
@@ -130,7 +158,8 @@ Phases, each of which fails the script (exit code 1) when it fails:
    and VAE (forward hooks), times their launches.
 7. A ``{"kernels": [...]}`` line (launches per path and in all; K1's
    ResNet-18 row counts the ResNet-18 paths, its vgg16_bn and ResNet-50
-   rows their RL paths, its boundary_expanding row that call), the card's
+   rows their RL paths, its boundary_expanding row that call; K3a's and
+   K3b's D = 512 rows their launches at D = 512 on STL-10), the card's
    name and power limit, and as the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -172,9 +201,11 @@ PRUNE_BI_EPOCHS = 2  # *_prune_bi prune when (E - epoch) % 2 == 0
 FISHER_RETAIN = 2_560  # fisher/fisher_new: retain images (per-sample grads)
 
 # Flash attention: the DDPM path's [B, N, D] (bs 128 unlearning, the CFG-
-# doubled bs 256 of mask generation, the 4x4 mid block) and ragged shapes
-# (B, Nq, Nk, D)
-ATTN_PATH = [(128, 256, 256, 256), (256, 256, 256, 256), (128, 16, 16, 256)]
+# doubled bs 256 of mask generation, the 4x4 mid block; the STL-10 U-Net's
+# 4x4 mid block at 512 channels, bs 128) and ragged shapes (B, Nq, Nk, D)
+ATTN_PATH = [(128, 256, 256, 256), (256, 256, 256, 256), (128, 16, 16, 256),
+             (128, 16, 16, 512)]
+ATTN_STL_MID = ATTN_PATH[3]
 ATTN_RAGGED = [(3, 77, 77, 64), (2, 100, 77, 40), (4, 33, 65, 160),
                (2, 1, 5, 8)]
 ATTN_TOL = 1e-4  # × max(1, max|plain|): fp32 sums in other orders
@@ -183,16 +214,26 @@ K2_BITWISE = [(128, 256, 256, 256), (32, 1024, 1024, 80),
               (4, 4096, 4096, 512)]
 # K3a the same for dq
 K3A_BITWISE = [(128, 256, 256, 256), (32, 4096, 4096, 40),
-               (128, 16, 16, 256)]
+               (128, 16, 16, 256), (128, 16, 16, 512)]
 # K3b the same for dk and dv; [32, 4096, 77, 40] takes the split walk
 K3B_BITWISE = [(128, 256, 256, 256), (32, 4096, 4096, 40),
-               (32, 4096, 77, 40)]
+               (32, 4096, 77, 40), (128, 16, 16, 512)]
+# K3a's and K3b's rows at the STL-10 mid block: their launches there are
+# counted apart (the kernels' D = 512 instantiations)
+D512_ROWS = {"K3a": "K3a flash_attention_bwd_dq D=512",
+             "K3b": "K3b flash_attention_bwd_dkv D=512"}
 
 # DDPM chain: the reference config, cut in count and steps
 DDPM_CONFIG = ROOT / "configs" / "ddpm" / "cifar10_saliency_unlearn.yml"
 DDPM_SAMPLE_CONFIG = ROOT / "configs" / "ddpm" / "cifar10_sample.yml"
 DDPM_PER_CLASS, DDPM_ITERS = 500, 20
 DDPM_SAMPLES, DDPM_STEPS, DDPM_CLASSES = 16, 50, (0, 1)
+# phase 5b: the rest of DDPM training and sampling, cut the same way
+DDPM_TRAIN_CONFIG = ROOT / "configs" / "ddpm" / "cifar10_train.yml"
+DDPM_FIM_CONFIG = ROOT / "configs" / "ddpm" / "cifar10_fim.yml"
+DDPM_FORGET_CONFIG = ROOT / "configs" / "ddpm" / "cifar10_forget.yml"
+STL10_CONFIG = ROOT / "configs" / "ddpm" / "stl10_train.yml"
+FIM_SAMPLES, FIM_BATCH, FIM_TIMESTEPS = 32, 8, 16
 
 # K4/K4b: the SD path's [B, C, H, W] (the U-Net's level 0 at the CFG-
 # doubled bs 4 of mask generation, the 640-channel concat of
@@ -417,6 +458,30 @@ def _k3b_bitwise(fa, bwd, first, shape) -> None:
     log(f"K3b {list(shape)}: two launches give bitwise equal dk and dv")
 
 
+def sdpa_backend(q, k, v, do, scale) -> str:
+    """The backend ``scaled_dot_product_attention`` dispatches to for a
+    forward and backward at these inputs: the first, in PyTorch's priority
+    order, that runs them when it is the only one allowed."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    names = {int(b): n for n, b in SDPBackend.__members__.items()}
+    for b in torch._C._get_sdp_priority_order():
+        name = names.get(int(b), str(b))
+        if name in ("ERROR", "OVERRIDEABLE"):
+            continue
+        try:
+            with sdpa_kernel([getattr(SDPBackend, name)]):
+                ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+                out = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+                torch.autograd.grad(out, (ql, kl, vl), do)
+            return name
+        except RuntimeError:
+            continue
+    return "none"
+
+
 def attention_vs_plain(device):
     """K2, K3a and K3b against their plain versions at the path's and the
     ragged shapes; times at the path's shapes. Returns the three kernel
@@ -429,6 +494,7 @@ def attention_vs_plain(device):
     names = {"K2": "K2 flash_attention_fwd", "K3a": "K3a flash_attention_bwd_dq",
              "K3b": "K3b flash_attention_bwd_dkv"}
     max_err = dict.fromkeys(names, 0.0)
+    shape_err = {}
     times = {}
     gen = torch.Generator(device=device).manual_seed(2)
     for shape in ATTN_PATH + ATTN_RAGGED:
@@ -453,6 +519,8 @@ def attention_vs_plain(device):
                 err = float((g - w).abs().max())
                 ref = float(w.abs().max())
                 max_err[name] = max(max_err[name], err)
+                shape_err[(name, shape)] = max(
+                    shape_err.get((name, shape), 0.0), err)
                 log(f"{name} {list(shape)}: max abs err {err:.3e}, "
                     f"relative to max|plain| {err / max(ref, 1e-30):.3e}")
                 if not err <= ATTN_TOL * max(1.0, ref):
@@ -467,6 +535,8 @@ def attention_vs_plain(device):
             _k3b_bitwise(fa, bwd, pairs["K3b"][0], shape)
         if shape not in ATTN_PATH:
             continue
+        log(f"SDPA {list(shape)}: the {sdpa_backend(q, k, v, do, scale)} "
+            f"backend (forward and backward)")
         ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
         out = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
         runs = {
@@ -498,15 +568,21 @@ def attention_vs_plain(device):
                 f"{n_ops / ms / 1e9:.2f} TFLOP/s achieved)")
         del out, ql, kl, vl
     sources = {"K2": ":34", "K3a": ":156", "K3b": ":188"}
+    # each kernel's row at the training shape (its error over every shape)
+    # and K3a's and K3b's at the STL-10 mid block (the error there)
+    rows = [(name, full, ATTN_PATH[0], max_err[name])
+            for name, full in names.items()]
+    rows += [(name, full, ATTN_STL_MID, shape_err[(name, ATTN_STL_MID)])
+             for name, full in D512_ROWS.items()]
     entries = []
-    for name, full in names.items():
+    for name, full, shape, err in rows:
         (ms, plain_ms, lib_ms, bound_ms, bound_by,
-         roof) = times[(name, ATTN_PATH[0])]
+         roof) = times[(name, shape)]
         entries.append({
             "name": full, "route": "cuda",
             "source": "salun_torch/csrc/flash_attention.cu",
             "replaces": "salun/kernels/flash_attention.py" + sources[name],
-            "shape": list(ATTN_PATH[0]), "max_abs_err": max_err[name],
+            "shape": list(shape), "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "roof": roof, "library_ms": lib_ms})
     return entries, {key: t[0] for key, t in times.items()}
@@ -651,7 +727,7 @@ def sd_attention_vs_plain(device):
                                                                 scale),
                        lambda: F.scaled_dot_product_attention(q, k, v,
                                                               scale=scale))}
-        if d <= fa.MAX_D_BWD:
+        if shape not in ATTN_SD_VAE:  # no SalUn path trains the VAE
             pairs["K3a"] = ((fa.flash_attention_bwd_dq(*bwd),),
                             (fa.flash_attention_bwd_dq_reference(*bwd),))
             pairs["K3b"] = (fa.flash_attention_bwd_dkv(*bwd),
@@ -680,7 +756,7 @@ def sd_attention_vs_plain(device):
             _k2_bitwise(fa, q, k, v, scale, k2_out, shape)
         if shape in K3A_BITWISE:
             _k3a_bitwise(fa, bwd, pairs["K3a"][0][0], shape)
-        if d <= fa.MAX_D_BWD:
+        if shape not in ATTN_SD_VAE:
             log(_k3b_split(fa, device, shape))
         if shape in K3B_BITWISE:
             _k3b_bitwise(fa, bwd, pairs["K3b"][0], shape)
@@ -1383,6 +1459,354 @@ def ddpm_path(device, attn_ms: dict) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------- phase 5b
+
+
+def _attention_kernels():
+    from salun_torch.kernels import flash_attention as fa
+
+    return {"K2 flash_attention_fwd": fa.flash_attention_fwd,
+            "K3a flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+            "K3b flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv}
+
+
+class D512Counter:
+    """Counts K3a's and K3b's launches at D = 512 (the STL-10 mid block),
+    in the wrappers' launch helper; their own ``.launches`` go on counting
+    all."""
+
+    def __init__(self):
+        from salun_torch.kernels import flash_attention as fa
+
+        self.fa, self.launch = fa, fa._launch
+        self.counts = dict.fromkeys(D512_ROWS.values(), 0)
+
+    def __enter__(self):
+        def launch(fn, name, q, *args):
+            if name in D512_ROWS and q.shape[-1] == 512:
+                self.counts[D512_ROWS[name]] += 1
+            return self.launch(fn, name, q, *args)
+
+        self.fa._launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        self.fa._launch = self.launch
+
+
+def _counted(what: str, want: list, fn, d512=None):
+    """``fn()`` with the attention kernels' counts set to 0 just before and
+    read just after; fails unless they are ``want`` (K2, K3a, K3b).
+    Returns ``(fn's result, {kernel row: launches})``."""
+    import torch
+
+    kernels = _attention_kernels()
+    for f in kernels.values():
+        f.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    got = [f.launches for f in kernels.values()]
+    if got != want:
+        fail(f"{what}: K2/K3a/K3b launches {got}, the path implies {want}")
+    log(f"{what}: K2/K3a/K3b launches {got}, as the path implies")
+    counts = dict(zip(kernels, got))
+    if d512 is not None:
+        counts.update(d512)
+    return out, counts
+
+
+def _finite_losses(what: str, result: dict, steps: int) -> None:
+    losses = result["losses"]
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        fail(f"{what} losses {losses}")
+    log(f"{what}: {steps} steps, losses finite (first {losses[0]:.4f}, "
+        f"last {losses[-1]:.4f}); {result['ms_per_step']:.3f} ms/step over "
+        f"steps {result['start_step'] + 2}-{result['start_step'] + steps} "
+        f"(first step {result['seconds']['first_step']:.3f} s)")
+
+
+def _images_ok(what: str, stats: dict, n: int) -> None:
+    if not (stats["finite"] and 0.0 <= stats["min"] <= stats["max"] <= 1.0
+            and stats["images"] == n):
+        fail(f"{what}: {stats}")
+    log(f"{what}: {n} images finite in [{stats['min']:.4f}, "
+        f"{stats['max']:.4f}], {stats['seconds']:.3f} s")
+
+
+def _compare_train_states(a_path: Path, b_path: Path) -> int:
+    """Model, Adam state, step and EMA of two DDPM checkpoints, bitwise;
+    returns the number of tensors compared."""
+    import torch
+
+    from salun_torch.ckpt import load_ddpm_train_state
+
+    a, b = (load_ddpm_train_state(str(p)) for p in (a_path, b_path))
+    if a[2] != b[2]:
+        fail(f"--resume ended at step {b[2]}, the straight run at {a[2]}")
+    same = [torch.equal(v, b[0][k]) for k, v in a[0].items()]
+    same += [torch.equal(v, b[3][k]) for k, v in a[3].items()]
+    for i, st in a[1]["state"].items():
+        same += [torch.equal(torch.as_tensor(st[k]),
+                             torch.as_tensor(b[1]["state"][i][k]))
+                 for k in ("step", "exp_avg", "exp_avg_sq")]
+    if not all(same):
+        fail(f"--resume differs from the straight run in "
+             f"{same.count(False)} of {len(same)} tensors")
+    return len(same)
+
+
+def ddpm_train_paths(device) -> dict:
+    """Phase 5b, CIFAR-10: ``ddpm_train --mode train`` (EMA), ``retrain``,
+    ``train`` 10 steps then ``--resume`` to 20, ``ddpm_fim``, the remember
+    set by ``ddpm_sample``, ``forget``, the other sample modes and
+    ``ddpm_save_base``, through the port's CLIs at the full width of
+    ``configs/ddpm/cifar10_train.yml``. Returns the launches by path."""
+    import torch
+
+    from salun_torch.ckpt import load_ddpm_states, load_mask
+    from salun_torch.cli import (ddpm_fim, ddpm_sample, ddpm_save_base,
+                                 ddpm_train)
+    from salun_torch.cli.ddpm_config import load_config
+    from salun_torch.diffusion.runner import DDPMRunner
+    from salun_torch.diffusion.sampling import timestep_sequence
+    from salun_torch.diffusion.unet import attention_sites
+
+    work = WORK / "ddpm_train"
+    shutil.rmtree(work, ignore_errors=True)
+    data_dir = work / "data"
+    write_cifar10_files(data_dir, ddpm_dataset())
+    bundle = load_config(str(DDPM_TRAIN_CONFIG))
+    n_params = sum(p.numel() for p in DDPMRunner(
+        bundle.unet, bundle.schedule, bundle.train).init(0).parameters())
+    sites = attention_sites(bundle.unet)
+    n = DDPM_ITERS
+    steps = len(timestep_sequence(bundle.schedule.num_timesteps,
+                                  DDPM_STEPS))
+    log(f"DDPM train U-Net ({DDPM_TRAIN_CONFIG.name}: ch {bundle.unet.ch}, "
+        f"ch_mult {bundle.unet.ch_mult}, EMA {bundle.train.ema_rate}): "
+        f"{n_params} parameters, seeded random weights")
+    log(f"DDPM train cuts: {10 * DDPM_PER_CLASS} training images instead of "
+        f"50,000; train and retrain {n} steps (of {bundle.train.n_iters}), "
+        f"resume {n // 2} + {n - n // 2}; FIM over {FIM_SAMPLES} images at "
+        f"{FIM_TIMESTEPS} timesteps (of 512 and 1000), batch {FIM_BATCH}; "
+        f"the SA remember set {DDPM_SAMPLES} samples of each kept class at "
+        f"{DDPM_STEPS} DDIM steps; forget {n} steps (of 20,000); sampling "
+        f"at {DDPM_STEPS} DDIM steps (of 1000)")
+    common = ["--config", str(DDPM_TRAIN_CONFIG), "--data", str(data_dir),
+              "--label_to_forget", "0", "--device", str(device),
+              "--n_iters", str(n)]
+    straight, resumed = work / "straight", work / "resumed"
+    by_path = {}
+
+    was = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    try:
+        result, by_path["ddpm_train"] = _counted(
+            "DDPM train (cuDNN deterministic)", [sites * n] * 3,
+            lambda: ddpm_train.main(common + ["--mode", "train",
+                                              "--save_dir", str(straight)]))
+        _finite_losses("DDPM train", result, n)
+        _, by_path["ddpm_train_resume"] = _counted(
+            f"DDPM train {n // 2} + --resume {n - n // 2}", [sites * n] * 3,
+            lambda: [ddpm_train.main(
+                common[:-1] + [str(n // 2), "--mode", "train",
+                               "--save_dir", str(resumed)]),
+                ddpm_train.main(common + ["--mode", "train", "--resume",
+                                          "--save_dir", str(resumed)])])
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = was
+    compared = _compare_train_states(straight / "ckpts" / "ckpt.pth",
+                                     resumed / "ckpts" / "ckpt.pth")
+    log(f"DDPM train --resume: model, Adam state, step and EMA bitwise "
+        f"equal to {n} steps straight ({compared} tensors, cuDNN "
+        f"deterministic)")
+    model_sd, _, ema_sd = load_ddpm_states(str(straight / "ckpts" /
+                                               "ckpt.pth"))
+    differ = sum(not torch.equal(model_sd[k], ema_sd[k]) for k in ema_sd)
+    if differ == 0:
+        fail("the EMA equals the parameters after training")
+    log(f"DDPM train: the EMA differs from the parameters in {differ} of "
+        f"{len(ema_sd)} tensors")
+
+    result, by_path["ddpm_retrain"] = _counted(
+        "DDPM retrain", [sites * n] * 3,
+        lambda: ddpm_train.main(common + ["--mode", "retrain", "--save_dir",
+                                          str(work / "retrain")]))
+    _finite_losses("DDPM retrain", result, n)
+    if 0 in result["labels_seen"] or not result["labels_seen"]:
+        fail(f"retrain saw the labels {result['labels_seen']}")
+    log(f"DDPM retrain saw the labels {result['labels_seen']} (never 0)")
+
+    passes = FIM_SAMPLES // FIM_BATCH * FIM_TIMESTEPS
+    fim, by_path["ddpm_fim"] = _counted(
+        f"DDPM FIM ({passes} vmapped gradients of {FIM_BATCH} samples)",
+        [sites * passes] * 3,
+        lambda: ddpm_fim.main([
+            "--config", str(DDPM_FIM_CONFIG), "--data", str(data_dir),
+            "--ckpt_folder", str(straight), "--save_dir", str(straight),
+            "--n_samples", str(FIM_SAMPLES), "--batch", str(FIM_BATCH),
+            "--n_timestep_samples", str(FIM_TIMESTEPS),
+            "--device", str(device)]))
+    saved = load_mask(str(straight / "fisher.pt"))
+    total = sum(float(v.sum()) for v in saved.values())
+    if (len(saved) != len(model_sd) or not math.isfinite(total)
+            or total <= 0 or any(float(v.min()) < 0 for v in saved.values())):
+        fail(f"the FIM is not finite and non-negative (sum {total})")
+    log(f"DDPM FIM seconds {fim['seconds']:.3f}: {FIM_SAMPLES} images, "
+        f"{FIM_TIMESTEPS} timesteps each, sum {total:.6e}")
+
+    kept = 9
+    stats, by_path["ddpm_remember_set"] = _counted(
+        "DDPM SA remember set", [sites * steps * kept, 0, 0],
+        lambda: ddpm_sample.main([
+            "--config", str(DDPM_SAMPLE_CONFIG), "--mode", "sample_classes",
+            "--ckpt_folder", str(straight), "--classes", "x0",
+            "--n_samples_per_class", str(DDPM_SAMPLES),
+            "--batch", str(DDPM_SAMPLES), "--timesteps", str(DDPM_STEPS),
+            "--save_dir", str(straight / "class_samples"),
+            "--device", str(device)]))
+    _images_ok("DDPM SA remember set", stats, DDPM_SAMPLES * kept)
+    result, by_path["ddpm_forget"] = _counted(
+        "DDPM forget (SA)", [2 * sites * n] * 3,
+        lambda: ddpm_train.main(
+            ["--config", str(DDPM_FORGET_CONFIG), "--data", str(data_dir),
+             "--label_to_forget", "0", "--device", str(device),
+             "--n_iters", str(n), "--mode", "forget",
+             "--ckpt_folder", str(straight),
+             "--save_dir", str(work / "forget")]))
+    _finite_losses("DDPM forget (SA)", result, n)
+    if 0 in result["labels_seen"]:
+        fail(f"forget's remember set holds class 0: {result['labels_seen']}")
+
+    sample = ["--config", str(DDPM_SAMPLE_CONFIG), "--ckpt_folder",
+              str(work / "forget"), "--timesteps", str(DDPM_STEPS),
+              "--device", str(device)]
+    classes = len(DDPM_CLASSES)
+    stats, by_path["ddpm_sample_fid"] = _counted(
+        "DDPM sample_fid", [sites * steps * classes, 0, 0],
+        lambda: ddpm_sample.main(sample + [
+            "--mode", "sample_fid", "--classes",
+            ",".join(map(str, DDPM_CLASSES)),
+            "--n_samples_per_class", str(DDPM_SAMPLES),
+            "--batch", str(DDPM_SAMPLES), "--save_dir",
+            str(work / "sample_fid")]))
+    _images_ok("DDPM sample_fid", stats, DDPM_SAMPLES * classes)
+    stats, by_path["ddpm_sample_visualization"] = _counted(
+        "DDPM sample_visualization", [sites * steps * 10, 0, 0],
+        lambda: ddpm_sample.main(sample + [
+            "--mode", "sample_visualization", "--save_dir",
+            str(work / "grid")]))
+    _images_ok("DDPM sample_visualization (grid.png)", stats, 100)
+    stats, by_path["ddpm_sample_trajectory"] = _counted(
+        "DDPM sample_trajectory", [sites * steps, 0, 0],
+        lambda: ddpm_sample.main(sample + [
+            "--mode", "sample_trajectory", "--save_dir",
+            str(work / "trajectory")]))
+    _images_ok("DDPM sample_trajectory (both chains)", stats, 10)
+
+    t0 = time.perf_counter()
+    saved = ddpm_save_base.main(["--dataset", "cifar10", "--data",
+                                 str(data_dir), "--label_to_forget", "0",
+                                 "--save_dir", str(work / "base_set")])
+    folders = sorted(p.name for p in (work / "base_set").iterdir())
+    if saved != 9 * DDPM_PER_CLASS or "0" in folders:
+        fail(f"ddpm_save_base wrote {saved} images into {folders}")
+    log(f"ddpm_save_base: {saved} PNGs in {folders} "
+        f"({time.perf_counter() - t0:.3f} s)")
+    shutil.rmtree(work, ignore_errors=True)
+    return by_path
+
+
+def write_stl10_files(data_dir: Path, ds) -> None:
+    """``ds`` (96x96 NHWC) in STL-10's binary layout: ``train_X.bin`` with
+    each image CHW and every channel column-major, ``train_y.bin`` with
+    labels 1..10."""
+    import numpy as np
+
+    base = data_dir / "stl10_binary"
+    base.mkdir(parents=True, exist_ok=True)
+    np.ascontiguousarray(ds.data.transpose(0, 3, 2, 1)).tofile(
+        base / "train_X.bin")
+    (ds.targets + 1).astype(np.uint8).tofile(base / "train_y.bin")
+
+
+def stl10_path(device) -> dict:
+    """Phase 5b, STL-10: ``train`` 20 steps, ``generate_mask`` and 2 classes
+    × 16 samples at the full width of ``configs/ddpm/stl10_train.yml``
+    (64x64, ch_mult [1, 2, 2, 2, 4]: the mid block's attention at D = 512)
+    on synthetic STL-10 binary files at 96x96. Returns the launches by
+    path, K3a's and K3b's at D = 512 apart."""
+    import numpy as np
+
+    from salun_torch.cli import ddpm_sample, ddpm_train
+    from salun_torch.cli.ddpm_config import load_config
+    from salun_torch.diffusion.runner import DDPMRunner
+    from salun_torch.diffusion.sampling import timestep_sequence
+    from salun_torch.diffusion.unet import attention_sites
+
+    work = WORK / "stl10"
+    shutil.rmtree(work, ignore_errors=True)
+    pool = ddpm_dataset()  # 500 of each class, 32x32
+    pool.data = np.repeat(np.repeat(pool.data, 3, axis=1), 3, axis=2)
+    write_stl10_files(work / "data", pool)
+    bundle = load_config(str(STL10_CONFIG))
+    n_params = sum(p.numel() for p in DDPMRunner(
+        bundle.unet, bundle.schedule, bundle.train).init(0).parameters())
+    sites = attention_sites(bundle.unet)
+    n, bs = DDPM_ITERS, bundle.train.batch_size
+    steps = len(timestep_sequence(bundle.schedule.num_timesteps,
+                                  DDPM_STEPS))
+    log(f"STL-10 U-Net ({STL10_CONFIG.name}: {bundle.unet.image_size}x"
+        f"{bundle.unet.image_size}, ch {bundle.unet.ch}, ch_mult "
+        f"{bundle.unet.ch_mult}): {n_params} parameters, seeded random "
+        f"weights; {sites} attention sites, the mid block's at D = "
+        f"{bundle.unet.ch * bundle.unet.ch_mult[-1]}")
+    log(f"STL-10 cuts: {len(pool)} synthetic 96x96 images (phase 5's, "
+        f"upsampled 3x; STL-10's train split is 5,000) resized to 64; train "
+        f"{n} steps (of {bundle.train.n_iters}); mask over class 0; "
+        f"{DDPM_SAMPLES} samples of {len(DDPM_CLASSES)} classes at "
+        f"{DDPM_STEPS} DDIM steps")
+    common = ["--config", str(STL10_CONFIG), "--data", str(work / "data"),
+              "--label_to_forget", "0", "--device", str(device)]
+    by_path = {}
+    with D512Counter() as d512:
+        result, by_path["stl10_train"] = _counted(
+            "STL-10 train", [sites * n] * 3,
+            lambda: ddpm_train.main(common + [
+                "--mode", "train", "--n_iters", str(n),
+                "--save_dir", str(work / "base")]),
+            d512.counts)
+    _finite_losses("STL-10 train", result, n)
+    if list(d512.counts.values()) != [n, n]:
+        fail(f"STL-10 train: K3a/K3b at D = 512 {d512.counts}, want {n}")
+    batches = -(-DDPM_PER_CLASS // bs)
+    with D512Counter() as d512:
+        _, by_path["stl10_mask"] = _counted(
+            "STL-10 generate_mask", [sites * batches] * 3,
+            lambda: ddpm_train.main(common + [
+                "--mode", "generate_mask", "--ckpt_folder",
+                str(work / "base"), "--save_dir", str(work / "mask")]),
+            d512.counts)
+    if list(d512.counts.values()) != [batches, batches]:
+        fail(f"STL-10 mask: K3a/K3b at D = 512 {d512.counts}")
+    log(f"STL-10 K3a/K3b launches at D = 512: train {n} each, mask "
+        f"{batches} each")
+    stats, by_path["stl10_sample"] = _counted(
+        "STL-10 sample_fid", [sites * steps * len(DDPM_CLASSES), 0, 0],
+        lambda: ddpm_sample.main([
+            "--config", str(STL10_CONFIG), "--mode", "sample_fid",
+            "--ckpt_folder", str(work / "base"),
+            "--classes", ",".join(map(str, DDPM_CLASSES)),
+            "--n_samples_per_class", str(DDPM_SAMPLES),
+            "--batch", str(DDPM_SAMPLES), "--timesteps", str(DDPM_STEPS),
+            "--save_dir", str(work / "samples"), "--device", str(device)]))
+    _images_ok("STL-10 sample_fid", stats, DDPM_SAMPLES * len(DDPM_CLASSES))
+    shutil.rmtree(work, ignore_errors=True)
+    return by_path
+
+
 # ------------------------------------------------------------------ phase 6
 
 
@@ -1829,6 +2253,8 @@ def main() -> None:
     kth_on_card(device)
     by_path.update(remaining_methods_paths(device, k1_ms))
     by_path["ddpm"] = ddpm_path(device, attn_ms)
+    by_path.update(ddpm_train_paths(device))
+    by_path.update(stl10_path(device))
     by_path["sd"] = sd_path(device, sd_attn_rows)
     log(f"TF32 on the main paths: {tf32_settings()}")
     for k in kernels:

@@ -318,10 +318,18 @@ def load_ddpm_states(path: str):
     """A DDPM ``ckpt.pth``, the list ``[model_sd, optim_sd, step,
     (ema_sd)]`` (runners/diffusion.py:252-265) → ``(model_sd, step,
     ema_sd or None)``, ``module.`` prefixes stripped."""
+    model_sd, _, step, ema_sd = load_ddpm_train_state(path)
+    return model_sd, step, ema_sd
+
+
+def load_ddpm_train_state(path: str):
+    """:func:`load_ddpm_states` with the optimizer's state, for
+    ``--resume``: ``(model_sd, optim_sd, step, ema_sd or None)``."""
     states = torch.load(path, map_location="cpu", weights_only=True)
+    optim_sd = states[1] if len(states) > 1 else {}
     step = int(states[2]) if len(states) > 2 else 0
     ema_sd = _strip_module(states[3]) if len(states) > 3 else None
-    return _strip_module(states[0]), step, ema_sd
+    return _strip_module(states[0]), optim_sd, step, ema_sd
 
 
 def save_ddpm_states(path: str, model_sd: dict, optim_sd=None, step: int = 0,

@@ -2,16 +2,21 @@
 reference DDPM/sample.py and the runner's sample modes,
 diffusion.py:642-931).
 
-Ported modes: ``sample_classes`` (``--n_samples_per_class`` per class)
-and ``sample_one_class`` (one image per class), with ``--classes`` in the
-``x0`` exclusion syntax, ``--timesteps``, ``--sample_type
-generalized|ddpm_noisy``, ``--eta`` and ``--cond_scale``. Images are PNGs,
-``save_dir/<class>/<i>.png``, written with the standard library. The other
-modes raise until they are ported.
+Modes: ``sample``, ``sample_fid`` and ``sample_classes``
+(``--n_samples_per_class`` per class, in batches of ``--batch``),
+``sample_one_class`` (one image per class), each written as PNGs
+``save_dir/<class>/<i>.png``; ``sample_visualization``, 10 images of every
+class, class by class, tiled row-major into ``save_dir/grid.png`` with
+``n_classes`` columns; ``sample_trajectory``, the whole chain of
+one image per class as ``save_dir/trajectory.npz`` (``xs`` and
+``x0_preds`` [steps, B, H, W, C] in [0,1], ``classes``). ``--classes``
+takes the ``x0`` exclusion syntax; ``--timesteps``, ``--sample_type
+generalized|ddpm_noisy``, ``--eta`` and ``--cond_scale`` as in JAX. PNGs
+are written with the standard library.
 
 Usage:
   python -m salun_torch.cli.ddpm_sample \
-      --config configs/ddpm/cifar10_sample.yml --mode sample_classes \
+      --config configs/ddpm/cifar10_sample.yml --mode sample_fid \
       --ckpt_folder unlearned/ --classes 0,1 --n_samples_per_class 16 \
       --timesteps 50 --save_dir samples/ [--device cpu]
 """
@@ -34,9 +39,6 @@ from salun_torch.diffusion import ConditionalUNet
 from salun_torch.diffusion.runner import DDPMRunner
 from salun_torch.utils.device import (make_generator, resolve_device,
                                       seed_all, set_tf32)
-
-PORTED_MODES = ("sample_classes", "sample_one_class")
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="SalUn DDPM sampling (PyTorch)")
@@ -105,12 +107,38 @@ def save_images(imgs: torch.Tensor, out_dir: str, start: int = 0) -> None:
                   (np.clip(img, 0, 1) * 255).astype(np.uint8))
 
 
+def save_grid(imgs: torch.Tensor, path: str, n_cols: int) -> None:
+    """NCHW images in [0,1] tiled row-major into one PNG of ``n_cols``
+    columns, quantised as :func:`save_images` does (``_save_grid`` of the
+    JAX CLI)."""
+    arr = (np.clip(imgs.detach().cpu().permute(0, 2, 3, 1).numpy(), 0, 1)
+           * 255).astype(np.uint8)
+    n, h, w, c = arr.shape
+    rows = (n + n_cols - 1) // n_cols
+    grid = np.zeros((rows * h, n_cols * w, c), np.uint8)
+    for i, img in enumerate(arr):
+        r, col = divmod(i, n_cols)
+        grid[r * h:(r + 1) * h, col * w:(col + 1) * w] = img
+    write_png(path, grid)
+
+
+def _nhwc(x: torch.Tensor) -> np.ndarray:
+    """[..., C, H, W] → [..., H, W, C] numpy, the JAX files' layout."""
+    return x.detach().cpu().movedim(-3, -1).numpy()
+
+
+def _stats(tensors, n: int, t0: float, path: str) -> dict:
+    out = {"images": n, "path": path,
+           "finite": all(bool(torch.isfinite(t).all()) for t in tensors),
+           "min": min(float(t.min()) for t in tensors),
+           "max": max(float(t.max()) for t in tensors),
+           "seconds": time.perf_counter() - t0}
+    print(f"wrote {path} ({n} images) in {out['seconds']:.3f} s")
+    return out
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if args.mode not in PORTED_MODES:
-        raise NotImplementedError(
-            f"--mode {args.mode} is not ported yet (ROADMAP queue 1, slice "
-            f"C: the other ddpm_sample modes)")
     device = resolve_device(args.device)
     set_tf32(True)
     os.makedirs(args.save_dir, exist_ok=True)
@@ -126,11 +154,28 @@ def main(argv=None):
     gen = make_generator(args.seed, device)
 
     classes = create_class_labels(args.classes, bundle.unet.n_classes)
+    t0 = time.perf_counter()
+    if args.mode == "sample_trajectory":
+        xs, x0s = runner.sample_trajectory(
+            model, classes=classes, cond_scale=args.cond_scale,
+            sample_type=args.sample_type, timesteps=args.timesteps,
+            eta=args.eta, generator=gen)
+        out = os.path.join(args.save_dir, "trajectory.npz")
+        np.savez_compressed(out, xs=_nhwc(xs), x0_preds=_nhwc(x0s),
+                            classes=np.asarray(classes))
+        return _stats([xs, x0s], len(classes), t0, out)
+    if args.mode == "sample_visualization":
+        imgs = runner.sample_visualization(model, cond_scale=args.cond_scale,
+                                           timesteps=args.timesteps,
+                                           generator=gen)
+        out = os.path.join(args.save_dir, "grid.png")
+        save_grid(imgs, out, bundle.unet.n_classes)
+        return _stats([imgs], len(imgs), t0, out)
+
     per_class = (1 if args.mode == "sample_one_class"
                  else args.n_samples_per_class)
     stats = {"images": 0, "finite": True, "min": float("inf"),
              "max": float("-inf")}
-    t0 = time.perf_counter()
     for c in classes:
         out_dir = os.path.join(args.save_dir, str(c))
         os.makedirs(out_dir, exist_ok=True)

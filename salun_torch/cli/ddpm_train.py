@@ -1,31 +1,44 @@
-"""DDPM SalUn driver (counterpart of ``salun/cli/ddpm_train.py``; reference
-DDPM/train.py:132-159).
+"""DDPM training and unlearning driver (counterpart of
+``salun/cli/ddpm_train.py``; reference DDPM/train.py:132-159).
 
-Ported modes:
+Modes:
 
-- ``generate_mask``: saliency of the CFG-scaled eps loss over the forget
-  class (diffusion.py:933-1039), written as
-  ``save_dir/mask/<label>/with_0.5.pt`` in the reference format;
+- ``train``: the conditional eps loss with cond-drop, clip → Adam, EMA
+  (diffusion.py:194-270); ``retrain`` the same without the forgotten
+  class;
+- ``forget``: the Selective-Amnesia baseline (diffusion.py:273-396): the
+  FIM ``ddpm_fim`` wrote as ``<ckpt_folder>/fisher.pt`` and the class
+  samples ``ddpm_sample`` wrote under ``<ckpt_folder>/class_samples``;
 - ``saliency_unlearn`` (``--method rl|ga``, ``--mask_path`` to a ``.pt``
   mask): remain + forget loss, clip → grad mask → Adam
-  (diffusion.py:482-619), written as ``save_dir/ckpts/ckpt.pth``
-  (``[model_sd, optim_sd, step, (ema_sd)]``).
+  (diffusion.py:482-619);
+- ``generate_mask``: saliency of the CFG-scaled eps loss over the forget
+  class (diffusion.py:933-1039), written as
+  ``save_dir/mask/<label>/with_0.5.pt`` in the reference format.
 
-``train``, ``retrain`` and ``forget`` raise ``NotImplementedError`` until
-they are ported; ``train_esd`` raises as in JAX. Weights come from
+``train_esd`` raises, as in JAX. Weights come from
 ``--ckpt_folder``/``ckpts/ckpt.pth`` (a reference checkpoint) or, without
-it, from a U-Net seeded with ``--seed``.
+it, from a U-Net seeded with ``--seed``. The trained state goes to
+``save_dir/ckpts/ckpt.pth`` (``[model_sd, optim_sd, step, (ema_sd)]``)
+every ``snapshot_freq`` steps and at the end. ``--resume`` continues from
+that file: model, Adam state, step and EMA, with the data streams moved on
+by ``step`` batches. Step s draws from a generator seeded with (``--seed``,
+s), so a resumed run draws what a straight one does.
 
 Usage:
+  python -m salun_torch.cli.ddpm_train --config configs/ddpm/cifar10_train.yml \
+      --mode train --data data/ --save_dir base/ [--resume] [--device cpu]
   python -m salun_torch.cli.ddpm_train \
       --config configs/ddpm/cifar10_saliency_unlearn.yml \
       --mode generate_mask --label_to_forget 0 --ckpt_folder base/ \
-      --save_dir out/ [--device cpu]
+      --save_dir out/
   python -m salun_torch.cli.ddpm_train \
       --config configs/ddpm/cifar10_saliency_unlearn.yml \
       --mode saliency_unlearn --method rl --label_to_forget 0 \
       --mask_path out/mask/0/with_0.5.pt --ckpt_folder base/ \
       --save_dir unlearned/
+  python -m salun_torch.cli.ddpm_train --config configs/ddpm/cifar10_forget.yml \
+      --mode forget --label_to_forget 0 --ckpt_folder base/ --save_dir sa/
 """
 
 from __future__ import annotations
@@ -37,8 +50,8 @@ import time
 
 import torch
 
-from salun_torch.ckpt import (load_ddpm_states, load_mask, save_ddpm_states,
-                              save_mask)
+from salun_torch.ckpt import (load_ddpm_states, load_ddpm_train_state,
+                              load_mask, save_ddpm_states, save_mask)
 from salun_torch.cli.ddpm_config import load_config
 from salun_torch.data import ddpm_data
 from salun_torch.data.loader import BatchIterator
@@ -46,12 +59,6 @@ from salun_torch.diffusion import ConditionalUNet
 from salun_torch.diffusion.runner import DDPMRunner, make_optimizer
 from salun_torch.utils.device import (make_generator, resolve_device,
                                       seed_all, set_tf32)
-
-NOT_PORTED = {
-    "train": "train/retrain",
-    "retrain": "train/retrain",
-    "forget": "forget (SA) with compute_fim",
-}
 
 
 def parse_args(argv=None):
@@ -71,6 +78,9 @@ def parse_args(argv=None):
     p.add_argument("--n_iters", type=int, default=None)
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--save_dir", type=str, default="results/ddpm")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from save_dir/ckpts/ckpt.pth: model, "
+                        "Adam state, step and EMA")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (default cuda; cpu for "
                         "tests)")
@@ -79,6 +89,11 @@ def parse_args(argv=None):
 
 def ckpt_path(folder: str) -> str:
     return os.path.join(folder, "ckpts", "ckpt.pth")
+
+
+def fim_path(folder: str) -> str:
+    """Where ``ddpm_fim`` writes the FIM and ``forget`` reads it."""
+    return os.path.join(folder, "fisher.pt")
 
 
 def load_unet(runner: DDPMRunner, args) -> ConditionalUNet:
@@ -92,9 +107,57 @@ def load_unet(runner: DDPMRunner, args) -> ConditionalUNet:
     return model.to(runner.device)
 
 
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of step ``step``: a pure function of (seed, step), as
+    JAX's ``fold_in(key, step)``."""
+    return make_generator((seed * 1_000_003 + step) % (2**63 - 1), device)
+
+
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _by_name(model, tensors: dict, what: str) -> list:
+    """``tensors`` (``{param name: tensor}``) in ``model.parameters()``
+    order; every parameter must be there."""
+    names = [n for n, _ in model.named_parameters()]
+    if set(tensors) != set(names):
+        raise KeyError(f"the {what} does not cover the model's parameters: "
+                       f"missing {sorted(set(names) - set(tensors))[:5]}, "
+                       f"extra {sorted(set(tensors) - set(names))[:5]}")
+    return [tensors[n] for n in names]
+
+
+def _streams(args, cfg, runner, model, optimizer, train_ds, bundle):
+    """(step function, batch streams) for the training modes."""
+    def stream(ds):
+        return ddpm_data.cycle(BatchIterator(ds, cfg.batch_size,
+                                             shuffle=True, seed=args.seed))
+
+    if args.mode in ("train", "retrain"):
+        ds = train_ds
+        if args.mode == "retrain":  # the forgotten class dropped entirely
+            ds, _ = ddpm_data.get_forget_dataset(ds, args.label_to_forget)
+        return runner.make_train_step(model, optimizer), [stream(ds)]
+    if args.mode == "saliency_unlearn":
+        remain, forget = ddpm_data.get_forget_dataset(train_ds,
+                                                      args.label_to_forget)
+        return (runner.make_saliency_unlearn_step(model, optimizer),
+                [stream(remain), stream(forget)])
+    # forget (SA): the FIM and θ_mle of the model loaded above, the
+    # remember set from the generated class samples
+    folder = args.ckpt_folder or args.save_dir
+    fisher = _by_name(model, load_mask(fim_path(folder), runner.device),
+                      "FIM")
+    theta_mle = [p.detach().clone() for p in model.parameters()]
+    remember = ddpm_data.image_folder_dataset(
+        os.path.join(args.ckpt_folder or ".", "class_samples"),
+        image_size=bundle.unet.image_size)
+    remember = ddpm_data.all_but_one_class_dataset(remember,
+                                                   args.label_to_forget)
+    return (runner.make_train_forget_step(model, optimizer, fisher,
+                                          theta_mle), [stream(remember)])
 
 
 def main(argv=None):
@@ -105,10 +168,6 @@ def main(argv=None):
         raise NotImplementedError(
             "train_esd is dispatched but unimplemented in the reference "
             "(DDPM/train.py:147-158); use mode=saliency_unlearn --method ga.")
-    if args.mode in NOT_PORTED:
-        raise NotImplementedError(
-            f"--mode {args.mode} is not ported yet (ROADMAP queue 1, slice "
-            f"C: {NOT_PORTED[args.mode]})")
     logging.basicConfig(level=logging.INFO)
     device = resolve_device(args.device)
     set_tf32(True)
@@ -123,16 +182,16 @@ def main(argv=None):
     train_ds = ddpm_data.get_dataset(bundle.dataset, args.data, train=True,
                                      image_size=bundle.unet.image_size)
     model = load_unet(runner, args)
-    gen = make_generator(args.seed, device)
-    remain, forget = ddpm_data.get_forget_dataset(train_ds,
-                                                  args.label_to_forget)
 
     if args.mode == "generate_mask":
+        _, forget = ddpm_data.get_forget_dataset(train_ds,
+                                                 args.label_to_forget)
         loader = BatchIterator(forget, cfg.batch_size, shuffle=True,
                                seed=args.seed)
         t0 = time.perf_counter()
         masks = runner.generate_mask(model, loader, thresholds=(0.5,),
-                                     generator=gen)
+                                     generator=make_generator(args.seed,
+                                                              device))
         for t, m in masks.items():
             save_mask(os.path.join(args.save_dir, "mask",
                                    str(args.label_to_forget),
@@ -148,17 +207,34 @@ def main(argv=None):
             raise ValueError("the port reads reference-format .pt masks")
         mask = load_mask(args.mask_path, device)
     optimizer = make_optimizer(model, cfg, mask)
-    remain_it = ddpm_data.cycle(BatchIterator(remain, cfg.batch_size,
-                                              shuffle=True, seed=args.seed))
-    forget_it = ddpm_data.cycle(BatchIterator(forget, cfg.batch_size,
-                                              shuffle=True, seed=args.seed))
-    step_fn = runner.make_saliency_unlearn_step(model, optimizer)
-    losses = []
+    step_fn, streams = _streams(args, cfg, runner, model, optimizer,
+                                train_ds, bundle)
+
+    start = 0
+    if args.resume and os.path.exists(ckpt_path(args.save_dir)):
+        model_sd, optim_sd, start, ema_sd = load_ddpm_train_state(
+            ckpt_path(args.save_dir))
+        model.load_state_dict(model_sd, strict=True)
+        optimizer.adam.load_state_dict(optim_sd)
+        if step_fn.shadow is not None and ema_sd is not None:
+            for name, s in step_fn.shadow.items():
+                s.copy_(ema_sd[name])
+        for _ in range(start):  # the data streams where the run stopped
+            for it in streams:
+                next(it)
+        logging.info(f"resumed from {ckpt_path(args.save_dir)} at step "
+                     f"{start}")
+
+    losses, labels = [], set()
     t0 = time.perf_counter()
     t_first = None
-    for step in range(cfg.n_iters):
-        losses.append(step_fn(next(remain_it), next(forget_it), gen))
-        if step == 0:  # the steady-state clock starts after a warm-up step
+    for step in range(start, cfg.n_iters):
+        batches = [next(it) for it in streams]
+        for b in batches:
+            labels.update(int(c) for c in set(b["label"].tolist()))
+        losses.append(step_fn(*batches, step_generator(args.seed, step,
+                                                       device)))
+        if step == start:  # the steady-state clock starts after one step
             _sync(device)
             t_first = time.perf_counter()
         if (step + 1) % cfg.log_freq == 0:
@@ -172,13 +248,14 @@ def main(argv=None):
         _save(args, model, optimizer, cfg.n_iters, step_fn.shadow)
     seconds = {"first_step": (t_first or t_end) - t0,
                "later_steps": t_end - (t_first or t_end)}
-    later = max(cfg.n_iters - 1, 0)
+    later = max(cfg.n_iters - start - 1, 0)
     ms = 1e3 * seconds["later_steps"] / later if later else float("nan")
-    print(f"saliency_unlearn seconds: first step {seconds['first_step']:.3f}"
-          f", steps 2-{cfg.n_iters} {seconds['later_steps']:.3f} "
+    print(f"{args.mode} seconds: first step {seconds['first_step']:.3f}, "
+          f"steps {start + 2}-{cfg.n_iters} {seconds['later_steps']:.3f} "
           f"({ms:.3f} ms/step)")
     return {"losses": [float(x) for x in losses], "seconds": seconds,
-            "ms_per_step": ms}
+            "ms_per_step": ms, "start_step": start,
+            "labels_seen": sorted(labels)}
 
 
 def _save(args, model, optimizer, step, shadow=None):

@@ -15,8 +15,7 @@
 //
 // Layout: single head, q [B, Nq, D], k/v [B, Nk, D], fp32, contiguous,
 // 16-byte aligned; any Nq, Nk ≥ 1 (the ragged last tile is masked), any
-// D that is a multiple of 8, up to 512 for K2 and 256 for K3a/K3b, Nq ≠ Nk
-// allowed.
+// D that is a multiple of 8, up to 512, Nq ≠ Nk allowed.
 //
 // K2 (`salun_flash_fwd`) replaces salun/kernels/flash_attention.py:34
 // `_flash_kernel` and :136 `_kernel_with_lm`, reached through `_flash_call`
@@ -92,8 +91,12 @@
 //   BK = 32 keys and CW = 1 with 4 blocks an SM up to D = 40 (SD's level
 //   0), 3 up to 64; CW = 2 and 2 blocks up to 128 (one at D = 128); BQ =
 //   32, CW = 4, 64-column chunks and 2 blocks up to 256. Where Nq ≤ 16 at
-//   D > 128 (the DDPM mid block), BQ = 16 and k and v pass whole, one
-//   load a tile instead of six: such a grid is one wave anyway.
+//   128 < D ≤ 256 (the DDPM mid block), BQ = 16 and k and v pass whole,
+//   one load a tile instead of six: such a grid is one wave anyway. Above
+//   256 (up to 512: the STL-10 U-Net's mid block, [B, 16, 16, 512]) BQ =
+//   16, CW = 4 and one block an SM, k and v in two 256-column chunks and
+//   k again as whole rows, a tile's three loads; q, do and the ring fill
+//   204 KB there. That is a simple instantiation, not a tuned one.
 // - Every fragment read is free of bank conflicts: rows of d + 4 and
 //   dc + 4 floats (a stride of 4·odd), p and dp − δ rows of BK + 8.
 // - No atomics, fixed summation order: dq is the same, bitwise, from run
@@ -131,7 +134,9 @@
 //   MMA and load latencies: BK = 64 keys, BQ = 32 queries and CW = 1 with
 //   4 blocks an SM up to D = 40 (SD's level 0), 3 up to 64; CW = 2 and 2
 //   blocks up to 128; BK = BQ = 32, CW = 4 and one block up to 256, whose
-//   k, v and ring fill 210 KB of shared memory at D = 256.
+//   k, v and ring fill 210 KB of shared memory at D = 256; BK = BQ = 16,
+//   CW = 4 and one block up to 512 (k, v and ring 202 KB at D = 512), a
+//   simple instantiation for the STL-10 mid block, not a tuned one.
 // - Every fragment read is free of bank conflicts with rows of d + 4
 //   floats (a stride of 4·odd), pᵀ and dsᵀ rows of BQ + 8.
 // - Where B·⌈Nk/BK⌉ blocks would leave SMs idle (SD cross-attention, Nk =
@@ -150,7 +155,7 @@
 namespace {
 
 constexpr int MAX_D_FWD = 512;  // K2
-constexpr int MAX_D_BWD = 256;  // K3a, K3b
+constexpr int MAX_D_BWD = 512;  // K3a, K3b
 
 __host__ __device__ constexpr int row_stride(int d) { return d + 4; }
 
@@ -1327,7 +1332,8 @@ int dkv_blocks_per_sm(int d) {
   ((d) <= 40    ? FN<4, 1, 32, 5, 4>(__VA_ARGS__)            \
    : (d) <= 64  ? FN<4, 1, 32, 8, 3>(__VA_ARGS__)            \
    : (d) <= 128 ? FN<4, 2, 32, 8, 2>(__VA_ARGS__)            \
-                : FN<2, 4, 32, 8, 1>(__VA_ARGS__))
+   : (d) <= 256 ? FN<2, 4, 32, 8, 1>(__VA_ARGS__)            \
+                : FN<1, 4, 16, 16, 1>(__VA_ARGS__))
 
 }  // namespace
 
@@ -1393,6 +1399,10 @@ extern "C" int salun_flash_bwd_dq(const void* q, const void* k,
   if (d <= 128) {
     return dq_launch<4, 2, 32, 128, 8, 2>(qp, kp, vp, dop, lp, dlp, dqp,
                                           batch, nq, nk, d, scale, stream);
+  }
+  if (d > 256) {
+    return dq_launch<1, 4, 32, 256, 16, 1>(qp, kp, vp, dop, lp, dlp, dqp,
+                                           batch, nq, nk, d, scale, stream);
   }
   if (nq <= 16) {
     return dq_launch<1, 4, 32, 256, 8, 1>(qp, kp, vp, dop, lp, dlp, dqp,

@@ -27,14 +27,17 @@ class BatchIterator:
     """
 
     def __init__(self, ds: ArrayDataset, batch_size: int, shuffle: bool = True,
-                 seed: int = 1):
+                 seed: int = 1, drop_last: bool = False):
         self.ds = ds
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
+        self.drop_last = drop_last  # no ragged final batch: no padding
         self._epoch = 0
 
     def __len__(self):
+        if self.drop_last:
+            return len(self.ds) // self.batch_size
         return (len(self.ds) + self.batch_size - 1) // self.batch_size
 
     def set_epoch(self, epoch: int) -> None:
@@ -53,7 +56,8 @@ class BatchIterator:
             order = np.arange(n)
         self._epoch += 1  # consecutive passes see different orders
         bs = self.batch_size
-        for start in range(0, n, bs):
+        stop = (n // bs) * bs if self.drop_last else n
+        for start in range(0, stop, bs):
             idx = order[start:start + bs]
             img = self.ds.data[idx]
             lab = self.ds.targets[idx].astype(np.int32)

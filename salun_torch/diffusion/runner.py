@@ -1,13 +1,14 @@
-"""DDPM SalUn runner (counterpart of ``salun/diffusion/runner.py``;
-reference DDPM/runners/diffusion.py): mask generation from the CFG-scaled
-eps loss, the ``saliency_unlearn`` step (``rl`` | ``ga``) and per-class
-sampling.
+"""DDPM workload runner (counterpart of ``salun/diffusion/runner.py``;
+reference DDPM/runners/diffusion.py): the ``train``/``retrain`` step with
+EMA, the Selective-Amnesia ``forget`` step and the diagonal FIM it needs,
+mask generation from the CFG-scaled eps loss, the ``saliency_unlearn``
+step (``rl`` | ``ga``), per-class sampling, the class grid and the
+denoising trajectory.
 
 The model is an ``nn.Module`` the methods take as an argument (JAX threads
 ``params``). Random draws (flips, timesteps, noise, cond-drop, dropout)
 come from an explicit ``torch.Generator`` or are injected, which is how
-the tests replay JAX's key chain. ``train``/``retrain``, ``forget`` (SA)
-and ``compute_fim`` are not ported yet.
+the tests replay JAX's key chain.
 """
 
 from __future__ import annotations
@@ -171,15 +172,58 @@ class DDPMRunner:
 
     # ------------------------------------------------------------ losses
 
-    def _eps_loss(self, model, x01, c, t, e, generator):
+    def _eps_loss(self, model, x01, c, t, e, generator,
+                  cond_drop_prob: Optional[float] = None):
         """Conditional eps-MSE on [0,1] images in train mode
         (losses.py:21-37): to [−1,1], q_sample, predict with the train
-        config's cond-drop rate, sum of squares."""
+        config's cond-drop rate (or ``cond_drop_prob``), sum of squares."""
         xt = q_sample(data_transform(x01), t, e, self.schedule)
-        out = model(xt, t.float(), c, train=True,
-                    cond_drop_prob=self.cfg.cond_drop_prob,
+        p_drop = (self.cfg.cond_drop_prob if cond_drop_prob is None
+                  else cond_drop_prob)
+        out = model(xt, t.float(), c, train=True, cond_drop_prob=p_drop,
                     generator=generator)
         return eps_mse(e, out)
+
+    def _stepper(self, model, optimizer: DDPMOptimizer, loss_fn,
+                 n_batches: int):
+        """``step(*batches, generator=None, draws=None)`` over
+        ``n_batches`` batches (the generator may follow them
+        positionally): loss, backward, clip (→ grad mask) → Adam, then the
+        EMA when the config sets ``ema`` (``step.shadow``, ``{name:
+        tensor}``); returns the loss (a device tensor)."""
+        shadow = ema_init(model) if self.cfg.ema else None
+
+        def step(*args, generator=None, draws=None):
+            batches, rest = args[:n_batches], args[n_batches:]
+            if rest:
+                (generator,) = rest
+            optimizer.zero_grad()
+            loss = loss_fn(model, *batches, generator=generator, draws=draws)
+            loss.backward()
+            optimizer.step()
+            if shadow is not None:
+                ema_update(model, shadow, self.cfg.ema_rate)
+            return loss.detach()
+
+        step.shadow = shadow
+        return step
+
+    # ------------------------------------------------------------ train
+
+    def train_loss(self, model, batch: dict, *,
+                   generator: Optional[torch.Generator] = None,
+                   draws: Optional[dict] = None):
+        """The conditional training loss (diffusion.py:194-270): flip,
+        antithetic t, noise, eps-MSE at the config's cond-drop rate.
+        ``draws`` injects any of ``flips``, ``t`` and ``e`` (NCHW)."""
+        x, c = _batch_images(batch, self.device)
+        x, t, e = self._draws(x, generator, draws)
+        return self._eps_loss(model, x, c, t, e, generator)
+
+    def make_train_step(self, model, optimizer: DDPMOptimizer):
+        """One training step: ``step(batch, generator=None, draws=None)``
+        (see :meth:`_stepper`)."""
+        return self._stepper(model, optimizer, self.train_loss, 1)
 
     # ------------------------------------------------ saliency_unlearn
 
@@ -249,23 +293,123 @@ class DDPMRunner:
         return forget_loss + cfg.alpha * remain_loss
 
     def make_saliency_unlearn_step(self, model, optimizer: DDPMOptimizer):
-        """One SalUn step: loss, backward, clip → grad mask → Adam, and the
-        EMA when the config sets ``ema`` (``step.shadow``). ``step(remain,
-        forget, generator)`` returns the loss (a device tensor)."""
-        shadow = ema_init(model) if self.cfg.ema else None
+        """One SalUn step: ``step(remain, forget, generator=None,
+        draws=None)`` (see :meth:`_stepper`)."""
+        return self._stepper(model, optimizer, self.unlearn_loss, 2)
 
-        def step(remain, forget, generator=None):
-            optimizer.zero_grad()
-            loss = self.unlearn_loss(model, remain, forget,
-                                     generator=generator)
-            loss.backward()
-            optimizer.step()
-            if shadow is not None:
-                ema_update(model, shadow, self.cfg.ema_rate)
-            return loss.detach()
+    # ------------------------------------------------ train_forget (SA)
 
-        step.shadow = shadow
-        return step
+    def forget_loss(self, model, remember: dict, fisher: Sequence[torch.Tensor],
+                    theta_mle: Sequence[torch.Tensor], *,
+                    generator: Optional[torch.Generator] = None,
+                    draws: Optional[dict] = None):
+        """The Selective-Amnesia loss (diffusion.py:273-396): eps-MSE on
+        uniform-noise images labelled with the forgotten class, plus
+        γ·eps-MSE on the remember batch, both at one shared antithetic t
+        and cond-drop 0, plus λ·Σ F∘(θ − θ_mle)². ``fisher`` and
+        ``theta_mle`` follow ``model.parameters()``.
+
+        Draws in order (each injectable through ``draws``): ``flips``,
+        ``t``, ``x_forget`` (uniform [0,1], NCHW), ``e_forget``,
+        ``e_remember``; then the forget forward's dropout, then the
+        remember forward's.
+        """
+        cfg = self.cfg
+        draws = draws or {}
+        x_r, c_r = _batch_images(remember, self.device)
+        n = x_r.shape[0]
+        if cfg.random_flip:
+            x_r = random_hflip(x_r, draws.get("flips"), generator=generator)
+
+        def draw(name, fn):
+            given = draws.get(name)
+            return fn() if given is None else given.to(self.device)
+
+        t = draw("t", lambda: antithetic_timesteps(
+            n, self.schedule.num_timesteps, generator=generator,
+            device=self.device)).long()
+        x_f = draw("x_forget", lambda: torch.rand(
+            x_r.shape, generator=generator, device=self.device)).float()
+        e_f = draw("e_forget", lambda: torch.randn(
+            x_r.shape, generator=generator, device=self.device)).float()
+        e_r = draw("e_remember", lambda: torch.randn(
+            x_r.shape, generator=generator, device=self.device)).float()
+        c_f = torch.full_like(c_r, cfg.label_to_forget)
+        l_forget = self._eps_loss(model, x_f, c_f, t, e_f, generator, 0.0)
+        l_rem = self._eps_loss(model, x_r, c_r, t, e_r, generator, 0.0)
+        ewc = sum((f * (p - p0).square()).sum()
+                  for f, p, p0 in zip(fisher, model.parameters(), theta_mle,
+                                      strict=True))
+        return l_forget + cfg.gamma * l_rem + cfg.lmbda * ewc
+
+    def make_train_forget_step(self, model, optimizer: DDPMOptimizer,
+                               fisher: Sequence[torch.Tensor],
+                               theta_mle: Sequence[torch.Tensor]):
+        """One SA step: ``step(remember, generator=None, draws=None)`` (see
+        :meth:`_stepper`)."""
+        fisher = [f.to(self.device) for f in fisher]
+        theta_mle = [p.detach().to(self.device) for p in theta_mle]
+
+        def loss_fn(model, remember, *, generator=None, draws=None):
+            return self.forget_loss(model, remember, fisher, theta_mle,
+                                    generator=generator, draws=draws)
+
+        return self._stepper(model, optimizer, loss_fn, 1)
+
+    # ------------------------------------------------ FIM
+
+    def compute_fim(self, model, batches, *, n_timestep_samples: int = 16,
+                    generator: Optional[torch.Generator] = None) -> dict:
+        """Diagonal FIM (diffusion.py:101-191): the mean over samples and
+        timesteps of the squared per-sample gradients of the conditional
+        eps loss (eval mode, cond-drop 0), ``{param name: tensor}``.
+
+        Per batch: flips, then t ``[n, n_timestep_samples]`` uniform in
+        [0, T), then noise ``[n_timestep_samples, n, C, H, W]`` (each
+        injectable as the batch's ``flips``, ``t``, ``e``); then for each
+        timestep sample one ``vmap(grad)`` over the whole batch, squared
+        and summed into an fp32 accumulator. The attention inside runs K2
+        and K3a/K3b once a site for the whole vmapped batch.
+        """
+        from torch.func import functional_call, grad, vmap
+
+        T = self.schedule.num_timesteps
+        names = [n for n, _ in model.named_parameters()]
+        params = {n: p.detach() for n, p in model.named_parameters()}
+        buffers = dict(model.named_buffers())
+
+        def one_loss(params, x01, c, t, e):
+            xt = q_sample(data_transform(x01[None]), t[None], e[None],
+                          self.schedule)
+            out = functional_call(model, (params, buffers),
+                                  (xt, t[None].float(), c[None]),
+                                  {"train": False, "cond_drop_prob": 0.0})
+            return (e[None] - out).square().sum()
+
+        per_sample = vmap(grad(one_loss), in_dims=(None, 0, 0, 0, 0))
+        acc = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+               for n, p in params.items()}
+        total = 0
+        for batch in batches:
+            x, c = _batch_images(batch, self.device)
+            n = x.shape[0]
+            if self.cfg.random_flip:
+                x = random_hflip(x, batch.get("flips"), generator=generator)
+            ts = batch.get("t")
+            ts = (torch.randint(0, T, (n, n_timestep_samples),
+                                generator=generator, device=self.device)
+                  if ts is None else torch.as_tensor(ts).to(self.device))
+            es = batch.get("e")
+            es = (torch.randn((n_timestep_samples,) + tuple(x.shape),
+                              generator=generator, device=self.device)
+                  if es is None else torch.as_tensor(es).to(self.device,
+                                                             torch.float32))
+            for i in range(n_timestep_samples):
+                g = per_sample(params, x, c, ts[:, i].long(), es[i])
+                for name in names:
+                    acc[name].add_(g[name].square().sum(0))
+            total += n * n_timestep_samples
+        return {name: a / total for name, a in acc.items()}
 
     # ------------------------------------------------ generate_mask
 
@@ -310,3 +454,36 @@ class DDPMRunner:
                              generator=generator)
             outs.append((x + 1.0) / 2.0)
         return torch.clamp(torch.cat(outs), 0.0, 1.0)
+
+    def sample_visualization(self, model, n_per_class: int = 10,
+                             cond_scale: Optional[float] = None,
+                             timesteps: Optional[int] = None,
+                             generator: Optional[torch.Generator] = None):
+        """Class-grid snapshot (diffusion.py:877-931): ``n_per_class``
+        images of every class, class by class, in [0,1], NCHW."""
+        return self.sample_classes(
+            model, classes=range(self.unet_cfg.n_classes),
+            n_per_class=n_per_class, cond_scale=cond_scale,
+            timesteps=timesteps, generator=generator)
+
+    def sample_trajectory(self, model, *, classes,
+                          cond_scale: Optional[float] = None,
+                          sample_type: str = "generalized",
+                          timesteps: Optional[int] = None, eta: float = 0.0,
+                          generator: Optional[torch.Generator] = None,
+                          x_T: Optional[torch.Tensor] = None, noise=None):
+        """The per-step denoising chain of one batch, one image per entry
+        of ``classes`` (denoising.py:31,93): ``(xs, x0_preds)`` in [0,1],
+        each ``[steps, B, C, H, W]``."""
+        cond_scale = self.cfg.cond_scale if cond_scale is None else cond_scale
+        ucfg = self.unet_cfg
+        labels = torch.as_tensor(list(classes), dtype=torch.long,
+                                 device=self.device)
+        _, xs, x0s = sample_image(
+            model, self.schedule, batch=labels.shape[0],
+            image_size=ucfg.image_size, channels=ucfg.in_channels,
+            classes=labels, cond_scale=cond_scale, sample_type=sample_type,
+            timesteps=timesteps, eta=eta, generator=generator, x_T=x_T,
+            noise=noise, return_trajectory=True)
+        return (torch.clamp((xs + 1.0) / 2.0, 0.0, 1.0),
+                torch.clamp((x0s + 1.0) / 2.0, 0.0, 1.0))

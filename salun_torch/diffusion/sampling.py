@@ -49,16 +49,26 @@ def ldm_uniform_timesteps(num_ddpm_timesteps: int, num_steps: int) -> list:
     return [s + 1 for s in range(0, num_ddpm_timesteps, c)]
 
 
+def _chain_result(x, x0, xs, x0s, return_trajectory: bool):
+    if return_trajectory:
+        return x, torch.stack(xs), torch.stack(x0s)
+    return x, x0
+
+
 def generalized_steps(eps_fn: Callable, x: torch.Tensor, seq: Sequence[int],
                       schedule: DiffusionSchedule, *, eta: float = 0.0,
                       generator: Optional[torch.Generator] = None,
-                      noise=None, final_alpha_bar: float = 1.0):
+                      noise=None, final_alpha_bar: float = 1.0,
+                      return_trajectory: bool = False):
     """DDIM chain (denoising.py:10-33). ``eps_fn(x, t_batch) -> eps``.
     ``final_alpha_bar`` is ᾱ at the −1 boundary: 1.0 (DDPM's
     compute_alpha) or, for ldm's DDIMSampler, ᾱ₀.
-    Returns ``(x_final, last x0 prediction)``."""
+    Returns ``(x_final, last x0 prediction)``; with ``return_trajectory``
+    ``(x_final, xs, x0_preds)``, each x_{t−1} and x0 prediction of the
+    chain stacked ``[steps, B, C, H, W]`` (denoising.py:31,93)."""
     n = x.shape[0]
     x0_t = None
+    xs, x0s = [], []
     for i, (t, t_next) in enumerate(_seq_pairs(seq)):
         at = _alpha(schedule, n, t, x.device)
         at_next = (_alpha(schedule, n, t_next, x.device) if t_next >= 0
@@ -69,16 +79,22 @@ def generalized_steps(eps_fn: Callable, x: torch.Tensor, seq: Sequence[int],
         c2 = torch.sqrt((1 - at_next) - c1 ** 2)
         z = _step_noise(noise, i, x, generator)
         x = torch.sqrt(at_next) * x0_t + c1 * z + c2 * et
-    return x, x0_t
+        if return_trajectory:
+            xs.append(x)
+            x0s.append(x0_t)
+    return _chain_result(x, x0_t, xs, x0s, return_trajectory)
 
 
 def ddpm_steps(eps_fn: Callable, x: torch.Tensor, seq: Sequence[int],
                schedule: DiffusionSchedule, *,
-               generator: Optional[torch.Generator] = None, noise=None):
+               generator: Optional[torch.Generator] = None, noise=None,
+               return_trajectory: bool = False):
     """Ancestral sampling (denoising.py:36-69). Returns
-    ``(x_final, last x0 prediction)``."""
+    ``(x_final, last x0 prediction)``, or with ``return_trajectory`` the
+    chain as :func:`generalized_steps` does."""
     n = x.shape[0]
     x0 = None
+    xs, x0s = [], []
     for i, (t, t_next) in enumerate(_seq_pairs(seq)):
         at = _alpha(schedule, n, t, x.device)
         atm1 = _alpha(schedule, n, t_next, x.device)
@@ -91,7 +107,10 @@ def ddpm_steps(eps_fn: Callable, x: torch.Tensor, seq: Sequence[int],
         z = _step_noise(noise, i, x, generator)
         mask = 1.0 if t > 0 else 0.0
         x = mean + mask * torch.exp(0.5 * torch.log(beta_t)) * z
-    return x, x0
+        if return_trajectory:
+            xs.append(x)
+            x0s.append(x0)
+    return _chain_result(x, x0, xs, x0s, return_trajectory)
 
 
 def timestep_sequence(num_timesteps: int, timesteps: Optional[int] = None,
@@ -114,10 +133,12 @@ def sample_image(model: ConditionalUNet, schedule: DiffusionSchedule, *,
                  sample_type: str = "generalized",
                  timesteps: Optional[int] = None, skip_type: str = "uniform",
                  eta: float = 0.0, generator: Optional[torch.Generator] = None,
-                 x_T: Optional[torch.Tensor] = None, noise=None):
+                 x_T: Optional[torch.Tensor] = None, noise=None,
+                 return_trajectory: bool = False):
     """The sampling pipeline (runners/diffusion.py sample_image): draw x_T
     (or take ``x_T``), run the chain with CFG eps, return x in [−1,1],
-    NCHW."""
+    NCHW; with ``return_trajectory`` ``(x, xs, x0_preds)``, the chain
+    stacked ``[steps, B, C, H, W]``."""
     seq = timestep_sequence(schedule.num_timesteps, timesteps, skip_type)
     device = classes.device
     if x_T is None:
@@ -129,11 +150,13 @@ def sample_image(model: ConditionalUNet, schedule: DiffusionSchedule, *,
 
     with torch.no_grad():
         if sample_type == "generalized":
-            x, _ = generalized_steps(eps_fn, x_T, seq, schedule, eta=eta,
-                                     generator=generator, noise=noise)
+            out = generalized_steps(eps_fn, x_T, seq, schedule, eta=eta,
+                                    generator=generator, noise=noise,
+                                    return_trajectory=return_trajectory)
         elif sample_type == "ddpm_noisy":
-            x, _ = ddpm_steps(eps_fn, x_T, seq, schedule,
-                              generator=generator, noise=noise)
+            out = ddpm_steps(eps_fn, x_T, seq, schedule,
+                             generator=generator, noise=noise,
+                             return_trajectory=return_trajectory)
         else:
             raise NotImplementedError(sample_type)
-    return x
+    return out if return_trajectory else out[0]

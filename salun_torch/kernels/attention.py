@@ -25,7 +25,7 @@ def scaled_dot_attention(q, k, v, *, scale: Optional[float] = None):
     scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttention.apply(q, k, v, scale)
+        return FlashAttention.apply(q, k, v, scale)[0]
     return flash_attention_fwd(q, k, v, scale)[0]
 
 

@@ -4,9 +4,7 @@
 Counterpart of ``salun/kernels/flash_attention.py``. Single head: q
 ``[B, Nq, D]``, k/v ``[B, Nk, D]``, fp32, contiguous (callers fold heads
 into B). The kernels take any Nq, Nk ≥ 1 and any D that is a multiple of
-8, up to 512 for K2 and 256 for K3a/K3b; anything else raises. The
-autograd function therefore raises for a gradient at D > 256 (the SD VAE's
-D = 512 attention runs frozen, forward only).
+8, up to 512; anything else raises.
 
 Each wrapper runs its plain PyTorch version (``*_reference``) for tensors
 on the CPU, and launches its kernel for tensors on a CUDA device (building
@@ -21,7 +19,11 @@ as one launch.
 :class:`FlashAttention` is the autograd function, as ``_fa_fwd_rule`` /
 ``_fa_bwd_rule``: K2 with the compact residual lse = m + log l saved
 beside ``(q, k, v, o)``; backward δ = Σ_d do∘o in torch (outside the
-Pallas kernels in JAX too), then K3a and K3b.
+Pallas kernels in JAX too), then K3a and K3b, through
+:class:`FlashAttentionBackward`. Both work under ``torch.func`` (``grad``,
+``vmap``, per-sample gradients as ``vmap(grad)``): their ``vmap`` rules
+fold the vmapped dimension into the leading B·H dimension the kernels
+take, so a vmapped call is still one launch of each kernel.
 """
 
 from __future__ import annotations
@@ -32,13 +34,13 @@ import math
 import torch
 
 MAX_D_FWD = 512  # K2
-MAX_D_BWD = 256  # K3a, K3b
+MAX_D_BWD = 512  # K3a, K3b
 
 # K3b's tiles by head width: (largest D, keys per block BK, queries per
 # tile BQ), those of ``SALUN_DKV_CONFIG``'s instantiations in
 # csrc/flash_attention.cu (its entry point refuses a split that is not a
 # multiple of its BQ).
-DKV_TILES = ((128, 64, 32), (256, 32, 32))
+DKV_TILES = ((128, 64, 32), (256, 32, 32), (512, 16, 16))
 # a split walks at least this many query tiles, so that the partials'
 # extra traffic and the summing launch stay small beside the walk
 DKV_MIN_SPLIT_TILES = 4
@@ -259,24 +261,75 @@ def _kernel(symbol: str, n_ptrs: int, n_ints: int = 4):
 # ------------------------------------------------------------- autograd
 
 
+def _fold(n: int, in_dims, tensors):
+    """Each tensor with its vmapped dimension (``None``: not vmapped, so
+    expanded) moved to the front and merged into the next one: [n, B, …]
+    → [n·B, …], contiguous."""
+    out = []
+    for t, dim in zip(tensors, in_dims):
+        t = t.expand(n, *t.shape) if dim is None else t.movedim(dim, 0)
+        out.append(t.reshape(n * t.shape[1], *t.shape[2:]).contiguous())
+    return out
+
+
+def _unfold(n: int, tensors):
+    return tuple(t.reshape(n, t.shape[0] // n, *t.shape[1:])
+                 for t in tensors)
+
+
 class FlashAttention(torch.autograd.Function):
-    """softmax(q·kᵀ·scale)·v with K2 forward and K3a/K3b backward."""
+    """softmax(q·kᵀ·scale)·v with K2 forward and K3a/K3b backward;
+    ``apply(q, k, v, scale)`` returns ``(o, lse)``, lse without
+    gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale):
-        if q.shape[-1] > MAX_D_BWD:
-            raise ValueError(f"head dim {q.shape[-1]}: the backward kernels "
-                             f"K3a/K3b take D up to {MAX_D_BWD}")
-        o, lse = flash_attention_fwd(q, k, v, scale, need_lse=True)
+    def forward(q, k, v, scale):
+        return flash_attention_fwd(q, k, v, scale, need_lse=True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, scale = inputs
+        o, lse = output
+        ctx.mark_non_differentiable(lse)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.scale = scale
-        return o
 
     @staticmethod
-    def backward(ctx, do):
+    def backward(ctx, do, _):
         q, k, v, o, lse = ctx.saved_tensors
-        do = do.contiguous()
-        delta = (do * o).sum(dim=-1)
-        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, ctx.scale)
-        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, ctx.scale)
+        dq, dk, dv = FlashAttentionBackward.apply(q, k, v, o, lse,
+                                                  do.contiguous(), ctx.scale)
         return dq, dk, dv, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, scale):
+        n = info.batch_size
+        out = FlashAttention.apply(*_fold(n, in_dims[:3], (q, k, v)), scale)
+        return _unfold(n, out), (0, 0)
+
+
+class FlashAttentionBackward(torch.autograd.Function):
+    """``(dq, dk, dv)`` of :class:`FlashAttention` from its residuals and
+    do: δ = Σ_d do∘o, then K3a and K3b. First-order only."""
+
+    @staticmethod
+    def forward(q, k, v, o, lse, do, scale):
+        delta = (do * o).sum(dim=-1)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)
+        return dq, dk, dv
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("flash attention has no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, o, lse, do, scale):
+        n = info.batch_size
+        out = FlashAttentionBackward.apply(
+            *_fold(n, in_dims[:6], (q, k, v, o, lse, do)), scale)
+        return _unfold(n, out), (0, 0, 0)

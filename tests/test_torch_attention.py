@@ -81,7 +81,7 @@ def test_autograd_function_matches_pallas_vjp_interpret(rng):
         want = jax.grad(loss_flash, argnums=(0, 1, 2))(
             jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     leaves = [t.requires_grad_() for t in _t(q, k, v)]
-    torch.sin(fa.FlashAttention.apply(*leaves, scale)).sum().backward()
+    torch.sin(fa.FlashAttention.apply(*leaves, scale)[0]).sum().backward()
     for t, w in zip(leaves, want):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=2e-4,
                                    atol=2e-4)
@@ -140,15 +140,18 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
     lse, delta = torch.zeros(b, n), torch.zeros(b, n)
     if bad == "d12":
         q, k, v = (torch.zeros(b, n, 12) for _ in range(3))
-    elif bad == "d264":  # K3a/K3b take D up to 256, K2 up to 512
+    elif bad == "d264":  # K2, K3a and K3b take D up to 512: 264 passes
         q, k, v = (torch.zeros(b, n, 264) for _ in range(3))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        scaled_dot_attention(*leaves).sum().backward()
+        assert all(t.grad.shape == (b, n, 264) for t in leaves)
+        q, k, v = (torch.zeros(b, n, 520) for _ in range(3))
         with pytest.raises(ValueError):
             fa.flash_attention_bwd_dq(q, k, v, q, lse, delta, 0.125)
         with pytest.raises(ValueError):
             fa.flash_attention_bwd_dkv(q, k, v, q, lse, delta, 0.125)
         with pytest.raises(ValueError):
             scaled_dot_attention(*(t.requires_grad_() for t in (q, k, v)))
-        q, k, v = (torch.zeros(b, n, 520) for _ in range(3))
     elif bad == "bf16":
         q = q.bfloat16()
     elif bad == "mismatch":

@@ -263,6 +263,76 @@ def test_k3a_is_bitwise_deterministic_on_card(cuda, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (128, 16, 16, 512),  # the STL-10 U-Net's mid block at bs 128
+    (3, 16, 16, 512), (2, 33, 77, 512), (2, 77, 33, 264), (1, 5, 100, 512),
+    (2, 130, 16, 384),
+], ids=str)
+def test_k3_wide_heads_match_plain_on_card(cuda, shape):
+    """K3a and K3b above D = 256 (the instantiations up to 512): ragged
+    Nq ≠ Nk, Nq below a tile; one counted launch each, within 1e-4 and
+    2e-5 of the largest value, as the narrower widths."""
+    b, nq, nk, d = shape
+    before = [fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches]
+    dk, dv, want_dk, want_dv = _dkv_on_card(cuda, shape, seed=10)
+    q, k, v, do = _inputs(cuda, b, nq, nk, d, seed=11)
+    scale = d ** -0.5
+    want_o, lse = fa.flash_attention_fwd_reference(q, k, v, scale)
+    delta = (do * want_o).sum(-1)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
+    want_dq = fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                  scale)
+    torch.cuda.synchronize()
+    assert [fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches] == [n + 1 for n in before]
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        _close(got, want)
+        _close(got, want, tol=2e-5)
+
+
+@pytest.mark.cuda
+def test_k3_at_d512_is_bitwise_deterministic_on_card(cuda):
+    b, nq, nk, d = 128, 16, 16, 512
+    q, k, v, do = _inputs(cuda, b, nq, nk, d, seed=12)
+    lse = torch.randn(b, nq, device=cuda).abs() + 3.0
+    delta = torch.randn(b, nq, device=cuda)
+    args = (q, k, v, do, lse, delta, d ** -0.5)
+    first = [fa.flash_attention_bwd_dq(*args),
+             *fa.flash_attention_bwd_dkv(*args)]
+    second = [fa.flash_attention_bwd_dq(*args),
+              *fa.flash_attention_bwd_dkv(*args)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 512])
+def test_per_sample_grads_launch_once_under_vmap_on_card(cuda, d):
+    """``vmap(grad)`` through the attention: one launch of K2, K3a and K3b
+    for the whole vmapped batch (the vmapped dimension folded into B), and
+    the per-sample gradients equal the CPU's plain ones."""
+    n_samples, b, n = 4, 2, 16
+    gen = torch.Generator().manual_seed(13)
+    w = torch.randn(d, 3 * d, generator=gen) * d ** -0.5
+    x = torch.randn(n_samples, b, n, d, generator=gen)
+
+    def loss(w, x):
+        q, k, v = (t.contiguous() for t in (x @ w).split(d, dim=-1))
+        return scaled_dot_attention(q, k, v).square().sum()
+
+    per_sample = torch.func.vmap(torch.func.grad(loss), in_dims=(None, 0))
+    want = per_sample(w, x)
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv)
+    before = [f.launches for f in kernels]
+    got = per_sample(w.to(cuda), x.to(cuda))
+    torch.cuda.synchronize()
+    assert [f.launches for f in kernels] == [c + 1 for c in before]
+    _close(got.cpu(), want)
+
+
+@pytest.mark.cuda
 def test_autograd_on_card_matches_cpu_plain(cuda):
     """The autograd function with K2/K3 on the card against the same
     function on the CPU (plain forward and backward)."""
@@ -288,15 +358,15 @@ def test_multi_head_attention_on_card(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bad", ["d12", "d264", "bf16", "strided", "cpu_k"])
+@pytest.mark.parametrize("bad", ["d12", "d520", "bf16", "strided", "cpu_k"])
 def test_unsupported_input_raises_on_card(cuda, bad):
     b, n, d = 2, 16, 64
     q, k, v, _ = _inputs(cuda, b, n, n, d)
     before = fa.flash_attention_fwd.launches
     if bad == "d12":
         q, k, v = (t[..., :12].contiguous() for t in (q, k, v))
-    elif bad == "d264":  # a gradient: K3a/K3b take D up to 256
-        q, k, v = (torch.randn(b, n, 264, device=cuda, requires_grad=True)
+    elif bad == "d520":  # a gradient: K3a/K3b take D up to 512
+        q, k, v = (torch.randn(b, n, 520, device=cuda, requires_grad=True)
                    for _ in range(3))
     elif bad == "bf16":
         q = q.bfloat16()

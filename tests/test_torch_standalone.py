@@ -43,7 +43,9 @@ def test_importing_every_port_module_loads_no_jax():
               "salun_torch.core.methods.wfisher",
               "salun_torch.core.methods.boundary",
               "salun_torch.core.methods.rl_proximal",
-              "salun_torch.core.methods.prune_variants"):
+              "salun_torch.core.methods.prune_variants",
+              "salun_torch.cli.ddpm_fim", "salun_torch.cli.ddpm_save_base",
+              "salun_torch.diffusion.ckpt_util"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
