@@ -27,10 +27,16 @@ Phases, each of which fails the script (exit code 1) when it fails:
    40] and [128, 16, 16, 256] bitwise equal dq, K3b launched twice at
    [128, 256, 256, 256], [32, 4096, 4096, 40] and [32, 4096, 77, 40] (a
    split query walk) bitwise equal dk and dv; K3b's split count is logged
-   at every shape. All three multiply on the tensor cores in 3xTF32. Times
-   with CUDA events, the bound (the operations at the 3xTF32 tensor-core
-   roof, 495/3 TFLOP/s, with the fp32 CUDA-core bound beside it), the
-   plain version's time and, for K2/K3, the time of
+   at every shape. The FIM's vmapped shapes [8, 256, 256, 256] (where K3b
+   must split its query walk) and [8, 16, 16, 256] are checked the same
+   way, untimed; then one batch of ``compute_fim`` (8 samples under
+   ``vmap``, one timestep) on the CIFAR-10 FIM U-Net through the kernels
+   is held against the same batch with the plain versions in their place,
+   each tensor within 1e-4 of its own largest entry. All three multiply
+   on the tensor cores in 3xTF32. Times with CUDA events, the bound (the
+   operations at the 3xTF32 tensor-core roof, 495/3 TFLOP/s, with the
+   fp32 CUDA-core bound beside it), the plain version's time and, for
+   K2/K3, the time of
    ``torch.nn.functional.scaled_dot_product_attention`` (forward; backward
    through autograd) on the same tensors, as a yardstick only. K4 and K4b
    (fused GroupNorm + SiLU forward and backward, one cluster launch each)
@@ -234,6 +240,11 @@ DDPM_FIM_CONFIG = ROOT / "configs" / "ddpm" / "cifar10_fim.yml"
 DDPM_FORGET_CONFIG = ROOT / "configs" / "ddpm" / "cifar10_forget.yml"
 STL10_CONFIG = ROOT / "configs" / "ddpm" / "stl10_train.yml"
 FIM_SAMPLES, FIM_BATCH, FIM_TIMESTEPS = 32, 8, 16
+# the FIM's attention: vmap folds FIM_BATCH samples into B (checked
+# against plain, not timed); at the first K3b takes its split walk
+ATTN_FIM = [(FIM_BATCH, 256, 256, 256), (FIM_BATCH, 16, 16, 256)]
+FIM_TOL = 1e-4  # × each tensor's own max FIM entry (fp32, other orders)
+FIM_ZERO = 1e-9  # × the largest entry: below it a tensor's FIM is 0
 
 # K4/K4b: the SD path's [B, C, H, W] (the U-Net's level 0 at the CFG-
 # doubled bs 4 of mask generation, the 640-channel concat of
@@ -483,8 +494,9 @@ def sdpa_backend(q, k, v, do, scale) -> str:
 
 
 def attention_vs_plain(device):
-    """K2, K3a and K3b against their plain versions at the path's and the
-    ragged shapes; times at the path's shapes. Returns the three kernel
+    """K2, K3a and K3b against their plain versions at the path's, the
+    ragged and the FIM's shapes; times at the path's shapes. Returns the
+    three kernel
     entries (at the bs-128 training shape) and ``{(name, shape): ms}``."""
     import torch
     import torch.nn.functional as F
@@ -497,7 +509,7 @@ def attention_vs_plain(device):
     shape_err = {}
     times = {}
     gen = torch.Generator(device=device).manual_seed(2)
-    for shape in ATTN_PATH + ATTN_RAGGED:
+    for shape in ATTN_PATH + ATTN_RAGGED + ATTN_FIM:
         b, nq, nk, d = shape
         q, do = (torch.randn(b, nq, d, generator=gen, device=device)
                  for _ in range(2))
@@ -531,6 +543,10 @@ def attention_vs_plain(device):
         if shape in K3A_BITWISE:
             _k3a_bitwise(fa, bwd, pairs["K3a"][0][0], shape)
         log(_k3b_split(fa, device, shape))
+        if shape == ATTN_FIM[0] and fa.dkv_split_plan(
+                *shape, fa.dkv_resident_blocks(device, shape[3]))[0] < 2:
+            fail(f"K3b does not split its query walk at the FIM's "
+                 f"{list(shape)}, so the split walk is unchecked there")
         if shape in K3B_BITWISE:
             _k3b_bitwise(fa, bwd, pairs["K3b"][0], shape)
         if shape not in ATTN_PATH:
@@ -586,6 +602,82 @@ def attention_vs_plain(device):
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "roof": roof, "library_ms": lib_ms})
     return entries, {key: t[0] for key, t in times.items()}
+
+
+def fim_vs_plain(device) -> None:
+    """One batch of ``compute_fim`` (FIM_BATCH samples under ``vmap``, one
+    timestep, injected t, noise and flips) on the CIFAR-10 FIM U-Net at
+    seeded random weights, through K2/K3a/K3b, held per tensor against
+    the same batch with the attention wrappers' plain versions in their
+    place. TF32 off and cuDNN deterministic, so the attention is all that
+    differs. A tensor whose FIM is below FIM_ZERO of the largest entry is
+    0 in exact arithmetic (attention's k bias): held at FIM_TOL of that
+    floor."""
+    import numpy as np
+    import torch
+
+    from salun_torch.cli.ddpm_config import load_config
+    from salun_torch.diffusion.runner import DDPMRunner
+    from salun_torch.diffusion.unet import attention_sites
+    from salun_torch.kernels import flash_attention as fa
+
+    bundle = load_config(str(DDPM_FIM_CONFIG))
+    runner = DDPMRunner(bundle.unet, bundle.schedule, bundle.train, device)
+    model = runner.init(0)
+    size, n = bundle.unet.image_size, FIM_BATCH
+    rng = np.random.default_rng(5)
+    batch = {"image": rng.integers(0, 256, (n, size, size, 3), np.uint8),
+             "label": rng.integers(0, bundle.unet.n_classes, n, np.int32),
+             "flips": torch.from_numpy(rng.random(n) < 0.5),
+             "t": torch.from_numpy(rng.integers(
+                 0, bundle.schedule.num_timesteps, (n, 1))),
+             "e": torch.from_numpy(rng.standard_normal(
+                 (1, n, 3, size, size), np.float32))}
+
+    def plain_fwd(q, k, v, scale, need_lse=False):
+        o, lse = fa.flash_attention_fwd_reference(q, k, v, scale)
+        return o, (lse if need_lse else None)
+
+    plain = {"flash_attention_fwd": plain_fwd,
+             "flash_attention_bwd_dq": fa.flash_attention_bwd_dq_reference,
+             "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv_reference}
+    kernels = _attention_kernels()
+    was = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    try:
+        for f in kernels.values():
+            f.launches = 0
+        got = runner.compute_fim(model, [batch], n_timestep_samples=1)
+        torch.cuda.synchronize()
+        launches = [f.launches for f in kernels.values()]
+        if launches != [attention_sites(bundle.unet)] * 3:
+            fail(f"FIM vs plain: K2/K3a/K3b launches {launches}, one a "
+                 f"site expected")
+        for name, fn in plain.items():
+            setattr(fa, name, fn)
+        want = runner.compute_fim(model, [batch], n_timestep_samples=1)
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in zip(plain, kernels.values()):
+            setattr(fa, name, fn)
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = was
+    floor = FIM_ZERO * max(float(w.max()) for w in want.values())
+    if not floor > 0 or not math.isfinite(floor):
+        fail(f"FIM vs plain: the plain FIM's largest entry is {floor}")
+    worst, zero = (0.0, ""), 0
+    for name, w in want.items():
+        scale = max(float(w.max()), floor)
+        zero += float(w.max()) < floor
+        ratio = float((got[name] - w).abs().max()) / scale
+        worst = max(worst, (ratio, name))
+        if not ratio <= FIM_TOL:
+            fail(f"FIM vs plain: {name} differs by {ratio:.3e} of its "
+                 f"largest entry {scale:.3e}")
+    log(f"FIM vs plain ({n} samples under vmap, launches {launches}): "
+        f"{len(want)} tensors, worst {worst[0]:.3e} of the tensor's own "
+        f"max ({worst[1]}); {zero} tensor(s) 0 in exact arithmetic")
 
 
 def _gn_work(shape, groups, backward: bool):
@@ -758,6 +850,10 @@ def sd_attention_vs_plain(device):
             _k3a_bitwise(fa, bwd, pairs["K3a"][0][0], shape)
         if shape not in ATTN_SD_VAE:
             log(_k3b_split(fa, device, shape))
+        if shape == ATTN_FIM[0] and fa.dkv_split_plan(
+                *shape, fa.dkv_resident_blocks(device, shape[3]))[0] < 2:
+            fail(f"K3b does not split its query walk at the FIM's "
+                 f"{list(shape)}, so the split walk is unchecked there")
         if shape in K3B_BITWISE:
             _k3b_bitwise(fa, bwd, pairs["K3b"][0], shape)
         del pairs, want_o, k2_out
@@ -2240,6 +2336,7 @@ def main() -> None:
     k1_ms = {k["name"]: k["ms"] for k in kernels}
     attn_entries, attn_ms = attention_vs_plain(device)
     kernels += attn_entries
+    fim_vs_plain(device)
     gn_entries, _ = groupnorm_vs_plain(device)
     kernels += gn_entries
     sd_attn_rows = sd_attention_vs_plain(device)

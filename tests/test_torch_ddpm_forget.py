@@ -4,10 +4,12 @@
 JAX's draws replayed into the port.
 
 Tolerances (fp32 on the CPU on both sides, other summation orders):
-- the FIM: 1e-4 of its largest entry, per tensor (a mean of squared
+- the FIM: 1e-4 of each tensor's own largest entry (a mean of squared
   per-sample gradients, each held at 2e-4 of the largest in
   ``tests/test_torch_ddpm_runner.py``; squaring doubles the relative
-  error of each term, the mean does not add to it);
+  error of each term, the mean does not add to it); a tensor whose FIM
+  is 0 in exact arithmetic, below 1e-9 of the largest entry over all
+  tensors, is held at 1e-13 of that entry;
 - the SA loss: 1e-5 relative; its gradients: 2e-4 of the largest entry;
 - the CLI chain: the FIM file carries every parameter's name, loads into
   the JAX package through its ``.pt`` path, and ``forget`` runs on it
@@ -105,12 +107,16 @@ def test_compute_fim_matches_jax(params):
     model = ddpm_twin(TINY, params)
     got = port_r.compute_fim(model, port_batches, n_timestep_samples=n_ts)
     assert list(got) == [n for n, _ in model.named_parameters()]
-    want = jax.tree.leaves(want)
-    scale = max(float(np.asarray(w).max()) for w in want)
+    want = [np.asarray(w) for w in jax.tree.leaves(want)]
+    # a leaf's FIM is 0 in exact arithmetic where the loss cannot see the
+    # parameter (attention's k bias; a bias added just before a GroupNorm
+    # with one channel per group): there both sides hold rounding noise
+    # of the squared zero, below 1e-9 of the largest entry
+    floor = 1e-9 * max(float(w.max()) for w in want)
     for a, b in zip(_leaves(model, list(got.values())), want):
         assert (a >= 0).all()
-        np.testing.assert_allclose(a, np.asarray(b), rtol=0,
-                                   atol=1e-4 * scale)
+        np.testing.assert_allclose(a, b, rtol=0,
+                                   atol=1e-4 * max(float(b.max()), floor))
 
 
 def _capture_grads():

@@ -6,20 +6,26 @@ Runs masked RL (CIFAR-10 regime, one epoch: two forget steps with random
 labels, two retain steps) on resnet20s with perturbed BatchNorm, 24 forget
 and 32 retain synthetic images at batch 16, lr 0.013, the same draws
 (augment offsets and flips, random labels) replayed from one JAX key on
-every run, as ``tests/test_torch_methods.py`` runs it at batch 32. Four
+every run, as ``tests/test_torch_methods.py`` runs it at batch 32. Five
 runs:
 
 - ``jax32``: ``salun.core.methods.RL`` in fp32;
 - ``jax64``: the same with ``jax_enable_x64`` and the model's dtype
   float64 (``randint`` and ``bernoulli`` held to their fp32-run dtypes,
-  so the draws stay the same); the model keeps the fp32 casts written
-  into it (BatchNorm's batch statistics, the fc layer, the log-softmax),
-  so this is JAX's own float64 run as far as the package allows;
+  so the draws stay the same), float64 end to end: the process reads
+  ``jnp.float32`` as ``float64`` in the modules that cast to it
+  (``_WIDE``: BatchNorm's batch statistics, the fc layer, the input and
+  the log-softmax), with the package's files unchanged;
+- ``jax64c``: ``jax64`` with those fp32 casts kept, as far as the
+  package itself goes in float64;
 - ``port32``: ``salun_torch.core.methods.RL`` in fp32;
-- ``port64``: the same step in torch float64 end to end (the port's
-  resnet20s in double, its augment, CE, and momentum SGD with the mask
-  and θ₀ pin written out in double), since the port's flat-buffer
-  optimizer is fp32 by design.
+- ``ref64``: an independent float64 reference in torch double end to
+  end: the port's resnet20s cast to double and its augment, with the
+  cross-entropy and the masked momentum SGD (θ₀ pinned) written out here.
+  It is not ``salun_torch.core.methods.RL``, which is fp32 by design (its
+  flat-buffer optimizer, its loader's cast and its cross-entropy's cast),
+  so it cannot run in double. ``jax64 vs ref64`` says whether the two
+  float64 runs, written apart, agree.
 
 For every pair it prints the worst tensor's ``max|a − b| / max|b − θ₀|``
 (the measure of the trajectory tests, whose bound is 0.1) and writes them
@@ -76,7 +82,22 @@ def _loaders(mod_d, mod_l, bs):
                                           bs, shuffle=True, seed=2)}
 
 
-def run_jax(bs: int, x64: bool, out: str) -> None:
+# the JAX modules on RL's path that cast to jnp.float32
+_WIDE = ("salun.models.layers", "salun.models.resnets", "salun.data.loader",
+         "salun.core.train")
+
+
+class _WideNumpy:
+    """``jax.numpy`` with ``float32`` read as ``float64``."""
+
+    def __init__(self, jnp):
+        self._jnp = jnp
+
+    def __getattr__(self, name):
+        return getattr(self._jnp, "float64" if name == "float32" else name)
+
+
+def run_jax(bs: int, x64: bool, out: str, keep_casts: bool = False) -> None:
     import jax
 
     # the tests' setting (tests/conftest.py)
@@ -95,6 +116,11 @@ def run_jax(bs: int, x64: bool, out: str) -> None:
         jax.random.bernoulli = (lambda key, p=0.5, shape=None:
                                 uniform(key, shape, jnp.float32) < p)
 
+    if x64 and not keep_casts:
+        import importlib
+
+        for name in _WIDE:
+            importlib.import_module(name).jnp = _WideNumpy(jnp)
     import salun.core.methods as M
     from salun.core.masked_opt import sgd
     from salun.core.train import TrainState
@@ -114,7 +140,9 @@ def run_jax(bs: int, x64: bool, out: str) -> None:
     np.savez(out, **{k: v.numpy() for k, v in sd.items()})
 
 
-def run_port(bs: int, f64: bool) -> dict:
+def run_torch(bs: int, f64: bool) -> dict:
+    """``port32`` (``f64`` false) or ``ref64``, as the module docstring
+    says."""
     import jax
     import torch
 
@@ -180,12 +208,13 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--out", default=None)
-    ap.add_argument("--jax-only", choices=["32", "64"], default=None,
+    ap.add_argument("--jax-only", choices=["32", "64", "64c"], default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--to", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.jax_only:
-        run_jax(args.batch, args.jax_only == "64", args.to)
+        run_jax(args.batch, args.jax_only != "32", args.to,
+                keep_casts=args.jax_only == "64c")
         return
 
     import torch
@@ -193,23 +222,24 @@ def main() -> None:
     torch.set_num_threads(1)
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for bits in ("32", "64"):
+        for bits in ("32", "64", "64c"):
             path = os.path.join(tmp, f"jax{bits}.npz")
             env = dict(os.environ, JAX_PLATFORMS="cpu")
             subprocess.run([sys.executable, __file__, "--batch",
                             str(args.batch), "--jax-only", bits, "--to",
                             path], check=True, env=env, cwd=ROOT)
             runs[f"jax{bits}"] = dict(np.load(path))
-    runs["port32"] = run_port(args.batch, False)
-    runs["port64"] = run_port(args.batch, True)
+    runs["port32"] = run_torch(args.batch, False)
+    runs["ref64"] = run_torch(args.batch, True)
 
     from _torch_port import port_twin
 
     _, params, stats, _ = _setup(False)
     theta0 = {k: v.double().numpy() for k, v in
               port_twin("resnet20s", params, stats).state_dict().items()}
-    pairs = [("port32", "port64"), ("jax32", "jax64"), ("jax32", "port64"),
-             ("jax64", "port64"), ("port32", "jax32"), ("port32", "jax64")]
+    pairs = [("jax64", "ref64"), ("port32", "ref64"), ("jax32", "ref64"),
+             ("jax32", "jax64"), ("port32", "jax64"), ("port32", "jax32"),
+             ("jax64c", "ref64"), ("jax32", "jax64c")]
     result = {"batch": args.batch}
     for a, b in pairs:
         frac, name = worst(runs[a], runs[b], theta0)
