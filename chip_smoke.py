@@ -50,8 +50,11 @@ Phases, each of which fails the script (exit code 1) when it fails:
    ``F.group_norm`` then ``F.silu`` (two calls; their autograd backward
    for K4b). K2 at the SD U-Net's
    self- and cross-attention shapes ([32, N, N or 77, D] for N = 4096,
-   1024, 256, 64 and D = 40, 80, 160, 160) with K3a/K3b there, and K2 at
-   the VAE's D = 512 ([4, 4096, 4096, 512]). K2, K3a and K3b at the
+   1024, 256, 64 and D = 40, 80, 160, 160) with K3a/K3b there, K2 at
+   ESD's shapes (the student's CFG chain at batch 1, [16, N, N or 77, D],
+   and the teacher's [8, 4096, 4096 or 77, 40]) with K3a/K3b at the latter
+   (K3b's split walk at Nk = 77), and K2 at the VAE's D = 512 ([4, 4096,
+   4096, 512]). K2, K3a and K3b at the
    STL-10 U-Net's mid block [128, 16, 16, 512] the same way, K3a and K3b
    there on kernel rows of their own, with the SDPA backend PyTorch picks
    at each of the DDPM path's shapes named. Saliency masks on the card
@@ -142,6 +145,18 @@ Phases, each of which fails the script (exit code 1) when it fails:
    images in [0, 1]; ``ddpm_save_base`` writes 500 PNGs of each kept
    class. Prints ms per step over steps 2–20 of every training mode, the
    FIM seconds, the sampling seconds and the U-Net parameter counts.
+5c. DDPM evaluation on phase 5b's outputs: the port's InceptionV3 (seeded
+   He-normal init; no pytorch-fid weights in the checkout) on the card
+   against the CPU at TF32 off, pool, sFID spatial and softmax of 8
+   images of 32×32 within 1e-4·max(1, max|CPU|); its feature rate over
+   2,560 images; the FID of those images against themselves ≤
+   1e-6·max(1, tr Σ); ``salun_torch.cli.ddpm_evaluator`` over phase 5b's
+   ``sample_fid`` folder against 64 synthetic CIFAR PNGs (every metric
+   finite, the CSV row written); ``salun_torch.cli.ddpm_classifier
+   train`` (ResNet-34 at 224, bs 64, 4 steps) and ``--freeze_layers``
+   (the body bitwise the seeded init, the head moved), then ``eval`` over
+   class 0's samples (probabilities summing to 1, the three metrics
+   finite). No port kernel runs here.
 6. SD chain at full width: ``configs/sd/v1-inference.yaml`` (U-Net
    859,520,964, VAE 83,653,863, CLIP text 123,060,480 parameters) with
    seeded random weights written as a CompVis ``.ckpt`` (no layer at zero,
@@ -162,6 +177,20 @@ Phases, each of which fails the script (exit code 1) when it fails:
    share of the step and of a sampling row: both kernels and the library
    pair timed at every GroupNormSiLU shape of a seeded full-width U-Net
    and VAE (forward hooks), times their launches.
+6b. The other SD trainers on phase 6's checkpoint, data and 0.5 mask,
+   through ``salun_torch.cli.sd_train`` (bs 4, lr 1e-5, full, remat):
+   ``gradient_ascent`` and ``proximal`` (``--mask_ratio 0.9``) 1 epoch = 4
+   steps, ``nsfw_removal`` 2 steps over 8 + 8 synthetic PNGs, ``esd`` 4
+   iterations at 50 DDIM steps (no mask), ``random_label
+   --cache_vae_moments`` 4 steps. Checks: K2/K3a/K3b/K4/K4b launch exactly
+   as each path implies (ESD's from the t_enc each iteration drew);
+   masked-out weights stay θ₀ bitwise, the VAE and CLIP unchanged;
+   proximal's shrink counts follow JAX's schedule, each leaves at least
+   its count at θ₀, and its exact k-th value equals ``torch.sort``'s on
+   the final 859.5M |θ − θ₀|; ESD's teacher stays the seeded U-Net
+   bitwise; the cached run's losses equal phase 6's first 4 within 1e-4
+   relative. Prints ms per step over steps 2+, proximal's peak memory and
+   the cache's precompute seconds.
 7. A ``{"kernels": [...]}`` line (launches per path and in all; K1's
    ResNet-18 row counts the ResNet-18 paths, its vgg16_bn and ResNet-50
    rows their RL paths, its boundary_expanding row that call; K3a's and
@@ -270,6 +299,13 @@ ATTN_SD_UNET = [(32, 4096, 4096, 40), (32, 4096, 77, 40),
                 (32, 256, 256, 160), (32, 256, 77, 160), (32, 64, 64, 160),
                 (32, 64, 77, 160)]
 ATTN_SD_VAE = [(4, 4096, 4096, 512)]
+# ESD's attention (phase 6b): the student's CFG-doubled chain at batch 1
+# (2 x 8 heads) and the teacher's and the trained forward at batch 1
+# (8 heads); K3a/K3b at the latter's level-0 self and cross attention
+ATTN_SD_ESD = [(16, 4096, 4096, 40), (16, 4096, 77, 40), (16, 1024, 1024, 80),
+               (16, 256, 256, 160), (16, 64, 64, 160), (8, 4096, 4096, 40),
+               (8, 4096, 77, 40)]
+ATTN_SD_ESD_BWD = [(8, 4096, 4096, 40), (8, 4096, 77, 40)]
 
 # SD chain: configs/sd/v1-inference.yaml at full width, seeded weights;
 # cut in count (16 forget images instead of 64, 2 epochs instead of 5,
@@ -280,6 +316,19 @@ SD_MERGES = ROOT / "tests" / "_synthetic_clip_merges.txt"
 SD_IMAGE, SD_PER_CLASS, SD_BS = 512, 16, 4
 SD_EPOCHS, SD_LR, SD_ALPHA = 2, 1e-5, 0.5
 SD_ROWS, SD_SAMPLES, SD_STEPS, SD_GUIDANCE = 2, 2, 50, 7.5
+# phase 6b: the other SD trainers on phase 6's checkpoint and data, cut
+# to 1 epoch (4 steps at bs 4; nsfw_removal 2 over 8 + 8 PNGs); ESD 4
+# iterations (of 1,000) at 50 DDIM steps; proximal's --mask_ratio 0.9 (with
+# the 0.5 mask half the U-Net sits at θ₀, so the default 0.5's ratio lands
+# in those zeros and τ = 0)
+SD_NSFW_IMAGES, SD_ESD_ITERS, SD_PROX_RATIO = 8, 4, 0.9
+SD_CACHE_TOL = 1e-4  # relative, cached against uncached losses (TF32 on)
+
+# phase 5c: FID/Inception and the DDPM classifier on phase 5b's samples
+INCEPTION_CHECK, INCEPTION_TOL = 8, 1e-4  # images; × max(1, max|CPU|)
+FID_REF, FID_TIMED = 64, 2_560  # reference PNGs; images timed (> 2,048)
+FID_SELF_TOL = 1e-6  # a set's FID against itself, × max(1, tr Σ)
+CLS_LIMIT, CLS_BS = 256, 64  # ddpm_classifier train: 4 steps at 224 px
 
 
 def fail(msg: str) -> None:
@@ -791,8 +840,9 @@ def groupnorm_vs_plain(device):
 
 
 def sd_attention_vs_plain(device):
-    """K2 at the U-Net's self- and cross-attention shapes and at D = 512
-    (the VAE), K3a/K3b at the U-Net's: errors against the plain versions,
+    """K2 at the U-Net's self- and cross-attention shapes, at ESD's and at
+    D = 512 (the VAE), K3a/K3b at the U-Net's and ESD's trained forward:
+    errors against the plain versions,
     times against the bound, the plain version and SDPA. Returns the
     per-shape rows."""
     import torch
@@ -802,8 +852,9 @@ def sd_attention_vs_plain(device):
 
     rows = []
     gen = torch.Generator(device=device).manual_seed(4)
-    for shape in ATTN_SD_UNET + ATTN_SD_VAE:
+    for shape in ATTN_SD_UNET + ATTN_SD_ESD + ATTN_SD_VAE:
         b, nq, nk, d = shape
+        backward = shape in ATTN_SD_UNET or shape in ATTN_SD_ESD_BWD
         q, do = (torch.randn(b, nq, d, generator=gen, device=device)
                  for _ in range(2))
         k, v = (torch.randn(b, nk, d, generator=gen, device=device)
@@ -819,7 +870,7 @@ def sd_attention_vs_plain(device):
                                                                 scale),
                        lambda: F.scaled_dot_product_attention(q, k, v,
                                                               scale=scale))}
-        if shape not in ATTN_SD_VAE:  # no SalUn path trains the VAE
+        if backward:  # no SalUn path trains the VAE
             pairs["K3a"] = ((fa.flash_attention_bwd_dq(*bwd),),
                             (fa.flash_attention_bwd_dq_reference(*bwd),))
             pairs["K3b"] = (fa.flash_attention_bwd_dkv(*bwd),
@@ -848,7 +899,7 @@ def sd_attention_vs_plain(device):
             _k2_bitwise(fa, q, k, v, scale, k2_out, shape)
         if shape in K3A_BITWISE:
             _k3a_bitwise(fa, bwd, pairs["K3a"][0][0], shape)
-        if shape not in ATTN_SD_VAE:
+        if backward:
             log(_k3b_split(fa, device, shape))
         if shape == ATTN_FIM[0] and fa.dkv_split_plan(
                 *shape, fa.dkv_resident_blocks(device, shape[3]))[0] < 2:
@@ -1811,7 +1862,7 @@ def ddpm_train_paths(device) -> dict:
         fail(f"ddpm_save_base wrote {saved} images into {folders}")
     log(f"ddpm_save_base: {saved} PNGs in {folders} "
         f"({time.perf_counter() - t0:.3f} s)")
-    shutil.rmtree(work, ignore_errors=True)
+    # phase 5c reads the data and the sample_fid folder, then removes work
     return by_path
 
 
@@ -1903,6 +1954,124 @@ def stl10_path(device) -> dict:
     return by_path
 
 
+# ----------------------------------------------------------------- phase 5c
+
+
+def ddpm_eval_path(device) -> None:
+    """Phase 5c: the port's InceptionV3 on the card against the CPU (TF32
+    off), its feature rate, a set's FID against itself, ``ddpm_evaluator``
+    over phase 5b's ``sample_fid`` folder against synthetic CIFAR PNGs, and
+    ``ddpm_classifier`` ``train`` (also ``--freeze_layers``) and ``eval``
+    at 224 px on phase 5b's CIFAR files and samples. No port kernel runs
+    here (neither network has attention or GroupNorm)."""
+    import csv
+
+    import numpy as np
+    import torch
+
+    from salun_torch.cli import ddpm_classifier, ddpm_evaluator
+    from salun_torch.cli.ddpm_sample import write_png
+    from salun_torch.evalx.fid import FIDStatistics
+    from salun_torch.evalx.inception import build_inception, make_feature_fn
+    from salun_torch.models import create_model
+    from salun_torch.utils.device import set_tf32
+
+    work = WORK / "ddpm_train"
+    samples, data_dir = work / "sample_fid", work / "data"
+    pool = ddpm_dataset()
+    set_tf32(False)
+    card = build_inception(None, device, seed=0)
+    cpu = build_inception(None, "cpu", seed=0)
+    imgs = pool.data[:INCEPTION_CHECK].astype(np.float32) / 255.0
+    got = make_feature_fn(card, INCEPTION_CHECK)(imgs)
+    want = make_feature_fn(cpu, INCEPTION_CHECK)(imgs)
+    del cpu
+    for name, g, w in zip(("pool", "spatial", "softmax"), got, want):
+        err, ref = float(np.abs(g - w).max()), float(np.abs(w).max())
+        if g.shape != w.shape or not err <= INCEPTION_TOL * max(1.0, ref):
+            fail(f"Inception {name} on the card differs from the CPU's: "
+                 f"shape {g.shape}, max abs err {err}")
+        log(f"Inception {name} {list(g.shape)}: card vs CPU max abs err "
+            f"{err:.3e} (max|CPU| {ref:.3e}, TF32 off)")
+    if not np.allclose(got[2].sum(1), 1.0, atol=1e-5):
+        fail("Inception softmax rows do not sum to 1")
+
+    extract = make_feature_fn(card, 64)
+    timed = pool.data[:FID_TIMED].astype(np.float32) / 255.0
+    extract(timed[:64])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = extract(timed)
+    seconds = time.perf_counter() - t0
+    log(f"Inception features: {FID_TIMED} images of 32x32 at batch 64 in "
+        f"{seconds:.3f} s, {FID_TIMED / seconds:.1f} images/s (resize to "
+        f"299, fp32, TF32 off)")
+    stats = FIDStatistics.from_activations(feats[0].astype(np.float64))
+    trace = float(np.trace(stats.sigma))
+    t0 = time.perf_counter()
+    self_fid = stats.frechet_distance(stats)
+    if not abs(self_fid) <= FID_SELF_TOL * max(1.0, trace):
+        fail(f"FID of {FID_TIMED} images against themselves {self_fid} "
+             f"(tr Σ {trace})")
+    log(f"FID of {FID_TIMED} images against themselves {self_fid:.3e} (tr Σ "
+        f"{trace:.3e}; the host's sqrtm at 2,048 dims "
+        f"{time.perf_counter() - t0:.3f} s)")
+    del feats, timed
+
+    ref = work / "fid_ref"
+    ref.mkdir(parents=True, exist_ok=True)
+    for i, img in enumerate(pool.data[-FID_REF:]):
+        write_png(str(ref / f"{i}.png"), img)
+    out_csv = work / "fid" / "result.csv"
+    t0 = time.perf_counter()
+    results = ddpm_evaluator.main([str(ref), str(samples), "--output_csv",
+                                   str(out_csv), "--device", str(device)])
+    rows = list(csv.reader(open(out_csv)))
+    if (not all(map(math.isfinite, results.values())) or len(rows) != 2
+            or rows[0] != ["ref", "sample"] + list(results)):
+        fail(f"ddpm_evaluator: {results}, CSV rows {rows}")
+    log(f"ddpm_evaluator ({FID_REF} synthetic CIFAR PNGs against phase 5b's "
+        f"{DDPM_SAMPLES * len(DDPM_CLASSES)} samples, random-init "
+        f"Inception): {results}; the CSV row written "
+        f"({time.perf_counter() - t0:.3f} s)")
+
+    common = ["--dataset", "cifar10", "--data", str(data_dir), "--limit",
+              str(CLS_LIMIT), "--batch_size", str(CLS_BS), "--epochs", "1",
+              "--device", str(device)]
+    trained = ddpm_classifier.main(["train", *common, "--save_dir",
+                                    str(work / "classifier")])
+    frozen = ddpm_classifier.main(["train", *common, "--freeze_layers",
+                                   "--save_dir", str(work / "frozen")])
+    init = create_model("resnet34", 10, seed=1).state_dict()
+    saved = torch.load(frozen["path"], map_location="cpu",
+                       weights_only=True)["state_dict"]
+    body = [k for k in init if not k.startswith("fc.")
+            and k.endswith(("weight", "bias"))]
+    if not all(torch.equal(saved[k], init[k]) for k in body):
+        fail("ddpm_classifier --freeze_layers moved a body weight")
+    if torch.equal(saved["fc.weight"], init["fc.weight"]):
+        fail("ddpm_classifier --freeze_layers did not train the head")
+    log(f"ddpm_classifier train (ResNet-34 at 224, bs {CLS_BS}, "
+        f"{trained['steps']} steps on {CLS_LIMIT} images): "
+        f"{trained['ms_per_step']:.3f} ms/step over steps 2-"
+        f"{trained['steps']} (first {trained['first_step_seconds']:.3f} s); "
+        f"--freeze_layers {frozen['ms_per_step']:.3f} ms/step, its "
+        f"{len(body)} body tensors bitwise the seeded init")
+    ev = ddpm_classifier.main([
+        "eval", "--sample_path", str(samples / str(DDPM_CLASSES[0])),
+        "--label_of_forgotten_class", str(DDPM_CLASSES[0]), "--ckpt",
+        trained["path"], "--save_dir", str(work / "classifier"),
+        "--device", str(device)])
+    probs = ev.pop("probs")
+    if (len(probs) != DDPM_SAMPLES
+            or not np.allclose(probs.sum(1), 1.0, atol=1e-5)
+            or not all(map(math.isfinite, ev.values()))):
+        fail(f"ddpm_classifier eval: {ev}, {len(probs)} rows")
+    log(f"ddpm_classifier eval over {len(probs)} class-{DDPM_CLASSES[0]} "
+        f"samples: {ev}, probabilities sum to 1")
+    shutil.rmtree(work, ignore_errors=True)
+
+
 # ------------------------------------------------------------------ phase 6
 
 
@@ -1946,20 +2115,25 @@ def write_sd_checkpoint(path: Path, device) -> int:
     return n_unet
 
 
-def write_imagenette_folder(root: Path) -> None:
-    """``imagenette2/train/<wnid>/`` with SD_PER_CLASS non-square (400×320)
-    seeded PNGs per class, so the loader's resize and center crop run."""
+def write_png_folder(root: Path, n: int, seed: int) -> None:
+    """``n`` seeded non-square (400×320) PNGs in a flat folder."""
     import numpy as np
 
     from salun_torch.cli.ddpm_sample import write_png
 
-    rng = np.random.default_rng(5)
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    for i in range(n):
+        write_png(str(root / f"{i}.png"),
+                  rng.integers(0, 256, (320, 400, 3)).astype(np.uint8))
+
+
+def write_imagenette_folder(root: Path) -> None:
+    """``imagenette2/train/<wnid>/`` with SD_PER_CLASS non-square seeded
+    PNGs per class, so the loader's resize and center crop run."""
     for c in range(10):
-        d = root / "imagenette2" / "train" / f"n{c:08d}"
-        d.mkdir(parents=True, exist_ok=True)
-        for i in range(SD_PER_CLASS):
-            write_png(str(d / f"{i}.png"),
-                      rng.integers(0, 256, (320, 400, 3)).astype(np.uint8))
+        write_png_folder(root / "imagenette2" / "train" / f"n{c:08d}",
+                         SD_PER_CLASS, 5 + c)
 
 
 def sd_step_attention_ms(cfg, rows) -> tuple:
@@ -2101,20 +2275,67 @@ def sd_gn_share(cfg, device, expect, step_ms: float, row_ms: float,
         f"({100 * row / row_ms:.1f}%; library pair {lrow:.3f} ms)")
 
 
+def check_sd_pinned(before: Path, after: Path, mask, what: str,
+                    device) -> None:
+    """Every masked-out U-Net weight of ``after`` equals ``before``'s
+    bitwise (``mask=None``: no such check), the VAE and CLIP are unchanged
+    bitwise, and some U-Net weight moved."""
+    import torch
+
+    from salun_torch.ckpt import load_compvis_state_dict
+
+    theta0 = load_compvis_state_dict(str(before))
+    new_sd = load_compvis_state_dict(str(after))
+    if set(theta0) != set(new_sd):
+        fail(f"{what}: compvis.ckpt holds other keys than the seeded one")
+    moved = 0
+    prefix = "model.diffusion_model."
+    for key, new in new_sd.items():
+        new, old = new.to(device), theta0[key].to(device)
+        if not key.startswith(prefix):
+            if not torch.equal(new, old):
+                fail(f"{what}: frozen SD weight {key} changed")
+            continue
+        if mask is not None:
+            keep = mask[key[len(prefix):]] > 0
+            if not torch.equal(new[~keep], old[~keep]):
+                fail(f"{what}: SD {key}: a masked-out weight left θ₀")
+        moved += int((new != old).sum())
+    if moved == 0:
+        fail(f"{what} moved no U-Net weight")
+    log(f"after {what}: "
+        + ("every masked-out U-Net weight equals θ₀ bitwise, " if mask
+           is not None else "")
+        + f"the VAE and CLIP are unchanged bitwise; {moved} U-Net weights "
+          f"moved")
+
+
+def _sd_kernels() -> dict:
+    """The wrappers the SD paths launch, by kernel-table name."""
+    from salun_torch.kernels import flash_attention as fa
+    from salun_torch.kernels import groupnorm_silu as gn
+    from salun_torch.kernels.masked_update import masked_sgd_update
+
+    return {"K1 masked_sgd_update": masked_sgd_update,
+            "K2 flash_attention_fwd": fa.flash_attention_fwd,
+            "K3a flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+            "K3b flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+            "K4 groupnorm_silu": gn.groupnorm_silu,
+            "K4b groupnorm_silu_backward": gn.groupnorm_silu_backward}
+
+
 def sd_path(device, attn_rows) -> dict:
-    """The SD SalUn chain through the port's three CLIs; returns the
-    launch counts of the whole chain."""
+    """The SD SalUn chain through the port's three CLIs, then phase 6b on
+    its checkpoint and data; returns the launch counts by path (``sd``:
+    the chain's)."""
     import gc
     import os
 
     import torch
 
-    from salun_torch.ckpt import load_compvis_state_dict, load_sd_mask
+    from salun_torch.ckpt import load_sd_mask
     from salun_torch.cli import sd_generate_images, sd_train
     from salun_torch.diffusion.sampling import ldm_uniform_timesteps
-    from salun_torch.kernels import flash_attention as fa
-    from salun_torch.kernels import groupnorm_silu as gn
-    from salun_torch.kernels.masked_update import masked_sgd_update
     from salun_torch.sd.config import load_sd_config
     from salun_torch.sd.data import read_prompts_csv
     from salun_torch.sd.unet import kernel_sites
@@ -2141,12 +2362,7 @@ def sd_path(device, attn_rows) -> dict:
         f"samples at {SD_STEPS} DDIM steps instead of 100, guidance "
         f"{SD_GUIDANCE}, {SD_IMAGE}x{SD_IMAGE}; synthetic BPE merges")
 
-    kernels = {"K1 masked_sgd_update": masked_sgd_update,
-               "K2 flash_attention_fwd": fa.flash_attention_fwd,
-               "K3a flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
-               "K3b flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
-               "K4 groupnorm_silu": gn.groupnorm_silu,
-               "K4b groupnorm_silu_backward": gn.groupnorm_silu_backward}
+    kernels = _sd_kernels()
 
     def counts():
         return {k: f.launches for k, f in kernels.items()}
@@ -2200,29 +2416,9 @@ def sd_path(device, attn_rows) -> dict:
              f"{int(n_unet * 0.5)} of {n_unet}")
     log(f"SD mask 0.5: exactly {ones} of {n_unet} ones")
 
-    # masked-out U-Net weights pinned to θ₀ bitwise; VAE and CLIP unchanged
-    theta0 = load_compvis_state_dict(str(ckpt))
-    after = load_compvis_state_dict(str(work / "rl" / "compvis.ckpt"))
-    if set(theta0) != set(after):
-        fail("compvis.ckpt holds other keys than the seeded checkpoint")
-    moved = 0
-    prefix = "model.diffusion_model."
-    for key, new in after.items():
-        new, old = new.to(device), theta0[key].to(device)
-        if not key.startswith(prefix):
-            if not torch.equal(new, old):
-                fail(f"frozen SD weight {key} changed")
-            continue
-        keep = mask[key[len(prefix):]] > 0
-        if not torch.equal(new[~keep], old[~keep]):
-            fail(f"SD {key}: a masked-out weight left θ₀")
-        moved += int((new[keep] != old[keep]).sum())
-    if moved == 0:
-        fail("random_label moved no kept weight")
-    log(f"after random_label: every masked-out U-Net weight equals θ₀ "
-        f"bitwise, the VAE and CLIP are unchanged bitwise; {moved} kept "
-        f"weights moved")
-    del theta0, after, mask
+    check_sd_pinned(ckpt, work / "rl" / "compvis.ckpt", mask, "random_label",
+                    device)
+    del mask
 
     # launches as the path implies
     unet = kernel_sites(cfg.unet)
@@ -2302,8 +2498,225 @@ def sd_path(device, attn_rows) -> dict:
                               "enc": vae_k4["enc"], "dec": vae_k4["dec"]},
                 step_ms, row_ms, n_ddim)
     total = {k: sum(g[k] for g in got.values()) for k in names}
+    rest = sd_rest_paths(device, work, ckpt, mask_file, cfg,
+                         result["losses"])
     shutil.rmtree(work, ignore_errors=True)
-    return total
+    return {"sd": total, **rest}
+
+
+def sd_rest_paths(device, work: Path, ckpt: Path, mask_file: Path, cfg,
+                  rl_losses) -> dict:
+    """Phase 6b: ``gradient_ascent``, ``nsfw_removal`` and ``proximal``
+    with phase 6's 0.5 mask, ``esd``, and ``random_label
+    --cache_vae_moments`` through ``salun_torch.cli.sd_train`` on phase
+    6's checkpoint and data, each with its launch count and gates. Returns
+    the launches by path."""
+    import gc
+
+    import torch
+
+    from salun_torch.ckpt import load_compvis_state_dict, load_sd_mask
+    from salun_torch.cli import sd_train
+    from salun_torch.diffusion.sampling import ldm_uniform_timesteps
+    from salun_torch.dist.topk import kth_largest
+    from salun_torch.sd.trainers import proximal_ratio
+    from salun_torch.sd.unet import kernel_sites
+
+    kernels = _sd_kernels()
+    names = list(kernels)
+    unet = kernel_sites(cfg.unet)
+    enc = 2 * len(cfg.vae.ch_mult) * cfg.vae.num_res_blocks + 5
+    k2f, k4f, k2r, k4r = (unet["k2"], unet["k4"], unet["k2_remat"],
+                          unet["k4_remat"])
+    steps = SD_PER_CLASS // SD_BS
+    nsfw_steps = SD_NSFW_IMAGES // SD_BS
+    write_png_folder(work / "nsfw", SD_NSFW_IMAGES, 8)
+    write_png_folder(work / "not-nsfw", SD_NSFW_IMAGES, 9)
+    log(f"SD phase 6b cuts: gradient_ascent, proximal and random_label "
+        f"--cache_vae_moments 1 epoch ({steps} steps at bs {SD_BS}, of 5 "
+        f"epochs); nsfw_removal {nsfw_steps} steps over {SD_NSFW_IMAGES} + "
+        f"{SD_NSFW_IMAGES} synthetic PNGs; esd {SD_ESD_ITERS} iterations "
+        f"(of 1,000) at {SD_STEPS} DDIM steps; proximal --mask_ratio "
+        f"{SD_PROX_RATIO} (the default 0.5's ratio lands in the 0.5 mask's "
+        f"zeros, τ = 0)")
+
+    def want(k2, k3, k4, k4b):
+        return dict(zip(names, (0, k2, k3, k3, k4, k4b)))
+
+    # a random_label step: 3 VAE encodes, 3 U-Net forwards (2 with the
+    # remat recompute), 2 backwards; cached, 1 encode (the remain side)
+    rl_step = (3 + 3 * k2f + 2 * k2r, 2 * k2f, 3 * enc + 3 * k4f + 2 * k4r,
+               2 * k4f)
+
+    def counted(what, fn, expect):
+        for f in kernels.values():
+            f.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: f.launches for k, f in kernels.items()}
+        if callable(expect):
+            expect = expect(out)
+        if got != expect:
+            fail(f"{what}: launches {got}, the path implies {expect}")
+        log(f"{what}: launches {got}, as the path implies")
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out, got
+
+    common = ["--config", str(SD_CONFIG), "--ckpt_path", str(ckpt),
+              "--data", str(work / "data"), "--image_size", str(SD_IMAGE),
+              "--batch_size", str(SD_BS), "--lr", str(SD_LR), "--alpha",
+              str(SD_ALPHA), "--train_method", "full", "--remat",
+              "--device", str(device)]
+    masked = common + ["--mask_path", str(mask_file)]
+    mask = load_sd_mask(str(mask_file), device)
+    by_path = {}
+
+    def report(what, result, n):
+        losses = result["losses"]
+        if len(losses) != n or not all(map(math.isfinite, losses)):
+            fail(f"{what} losses {losses}")
+        log(f"{what}: {n} steps, losses finite {[round(x, 5) for x in losses]}"
+            f"; {result['ms_per_step']:.3f} ms/step over steps 2-{n} (first "
+            f"step {result['seconds']['first_step']:.3f} s)")
+
+    result, by_path["sd_gradient_ascent"] = counted(
+        "SD gradient_ascent", lambda: sd_train.main([
+            "gradient_ascent", *masked, "--epochs", "1", "--save_dir",
+            str(work / "ga")]),
+        want(steps * 2 * (1 + k2f + k2r), steps * 2 * k2f,
+             steps * 2 * (enc + k4f + k4r), steps * 2 * k4f))
+    report("SD gradient_ascent", result, steps)
+    check_sd_pinned(ckpt, work / "ga" / "compvis.ckpt", mask,
+                    "gradient_ascent", device)
+
+    result, by_path["sd_nsfw_removal"] = counted(
+        "SD nsfw_removal", lambda: sd_train.main([
+            "nsfw_removal", *masked, "--forget_dir", str(work / "nsfw"),
+            "--remain_dir", str(work / "not-nsfw"), "--save_dir",
+            str(work / "nsfw_out")]),
+        want(*(nsfw_steps * k for k in rl_step)))
+    report("SD nsfw_removal", result, nsfw_steps)
+    check_sd_pinned(ckpt, work / "nsfw_out" / "compvis.ckpt", mask,
+                    "nsfw_removal", device)
+
+    result, by_path["sd_proximal"] = counted(
+        "SD proximal", lambda: sd_train.main([
+            "proximal", *masked, "--epochs", "1", "--mask_ratio",
+            str(SD_PROX_RATIO), "--save_dir", str(work / "prox")]),
+        want(*(steps * k for k in rl_step)))
+    report("SD proximal", result, steps)
+    # the shrink counts of JAX's loop (sd_train.py:262-306): the whole
+    # model's count, forget + remain batches an epoch, minus the frozen
+    n_total, n_frozen = result["n_total"], result["n_frozen"]
+    remain = 9 * SD_PER_CLASS  # the other nine classes
+    ratios = [proximal_ratio(SD_PROX_RATIO, 0, i, steps, -(-remain // SD_BS),
+                             1, n_total) - n_frozen for i in range(steps)]
+    shrinks = result["shrinks"]
+    if (not shrinks or [x["ratio"] for x in shrinks]
+            != [r for r in ratios if r >= 1]
+            or not all(x["pinned"] >= x["ratio"] and x["tau"] > 0
+                       for x in shrinks)):
+        fail(f"SD proximal shrinks {shrinks}, the schedule implies "
+             f"{ratios}")
+    log(f"SD proximal: {len(shrinks)} shrinks (n_total {n_total}, n_frozen "
+        f"{n_frozen}): ratio, τ, weights at θ₀ after it "
+        f"(ratio plus the ties at τ and the moves that round onto θ₀) "
+        + "; ".join(f"{x['ratio']}, {x['tau']:.6e}, {x['pinned']} "
+                    f"(+{x['pinned'] - x['ratio']})" for x in shrinks)
+        + f"; peak memory {result['peak_bytes'] / 2**30:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated over the steps and shrinks)")
+    check_sd_pinned(ckpt, work / "prox" / "compvis.ckpt", mask, "proximal",
+                    device)
+    # the exact k-th value at full width against torch.sort's, on the
+    # final |θ − θ₀|: at the last shrink's rank (inside the pinned zeros)
+    # and halfway through the values above them
+    theta0 = load_compvis_state_dict(str(ckpt))
+    final = load_compvis_state_dict(str(work / "prox" / "compvis.ckpt"))
+    prefix = "model.diffusion_model."
+    flat = torch.cat([(final[k].to(device) - theta0[k].to(device)).abs()
+                      .reshape(-1) for k in final if k.startswith(prefix)])
+    del final
+    n = flat.numel()
+    ascending = torch.sort(flat).values
+    zeros = int((flat == 0).sum())
+    for r in (shrinks[-1]["ratio"], (zeros + n) // 2):
+        tau = kth_largest(flat, n - r + 1)
+        if not torch.equal(tau, ascending[r - 1]):
+            fail(f"proximal τ {float(tau)} differs from torch.sort's "
+                 f"{float(ascending[r - 1])} at rank {r} of {n}")
+        log(f"proximal's k-th value at rank {r} of {n} |θ − θ₀| ({zeros} of "
+            f"them 0) equals torch.sort's bitwise ({float(tau):.6e})")
+    del flat, ascending, tau
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ESD: the teacher is captured to check it stays bitwise θ₀
+    teachers = []
+    frozen_copy = sd_train.frozen_copy
+
+    def capture(u):
+        teachers.append(frozen_copy(u))
+        return teachers[-1]
+
+    seq = ldm_uniform_timesteps(cfg.timesteps, SD_STEPS)[:-1]
+    step_size = cfg.timesteps // SD_STEPS
+
+    def esd_launches(result):
+        # per iteration: the CFG chain's executed steps, the teacher's two
+        # forwards and the trained forward (with its remat recompute) and
+        # backward; no VAE
+        chain = sum(sum(1 for t in seq if t >= 1 + (te - 1) * step_size)
+                    for te in result["t_enc"])
+        n = SD_ESD_ITERS
+        return want((chain + 3 * n) * k2f + n * k2r, n * k2f,
+                    (chain + 3 * n) * k4f + n * k4r, n * k4f)
+
+    sd_train.frozen_copy = capture
+    try:
+        result, by_path["sd_esd"] = counted(
+            "SD esd", lambda: sd_train.main([
+                "esd", *common, "--prompt", "a photo of a nude person, tench",
+                "--iterations", str(SD_ESD_ITERS), "--ddim_steps",
+                str(SD_STEPS), "--save_dir", str(work / "esd")]),
+            esd_launches)
+    finally:
+        sd_train.frozen_copy = frozen_copy
+    report("SD esd", result, SD_ESD_ITERS)
+    log(f"SD esd t_enc {result['t_enc']} (chain steps run: 49 at 0, else "
+        f"50 − t_enc)")
+    [teacher] = teachers
+    for k, v in teacher.state_dict().items():
+        if not torch.equal(v, theta0[prefix + k].to(device)):
+            fail(f"ESD's teacher {k} left θ₀")
+    log("SD esd: the teacher equals the seeded U-Net bitwise")
+    del teachers, teacher, theta0
+    check_sd_pinned(ckpt, work / "esd" / "compvis.ckpt", None, "esd",
+                    device)
+
+    # cached random_label: the forget moments once (SD_PER_CLASS / SD_BS
+    # encodes), then per step 1 VAE encode instead of 3
+    batches = -(-SD_PER_CLASS // SD_BS)
+    result, by_path["sd_random_label_cached"] = counted(
+        "SD random_label --cache_vae_moments", lambda: sd_train.main([
+            "random_label", *masked, "--epochs", "1", "--cache_vae_moments",
+            "--save_dir", str(work / "cached")]),
+        want(batches + steps * (1 + 3 * k2f + 2 * k2r), steps * 2 * k2f,
+             batches * enc + steps * (enc + 3 * k4f + 2 * k4r),
+             steps * 2 * k4f))
+    report("SD random_label --cache_vae_moments", result, steps)
+    got, ref = result["losses"], rl_losses[:steps]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+    if not worst <= SD_CACHE_TOL:
+        fail(f"cached random_label losses {got} differ from phase 6's "
+             f"uncached {ref} (worst relative {worst})")
+    log(f"SD random_label --cache_vae_moments: losses equal phase 6's "
+        f"uncached first {steps} within {worst:.3e} relative (tolerance "
+        f"{SD_CACHE_TOL}); cache precompute {result['cache_seconds']:.3f} s "
+        f"for {SD_PER_CLASS} images")
+    check_sd_pinned(ckpt, work / "cached" / "compvis.ckpt", mask,
+                    "random_label --cache_vae_moments", device)
+    return by_path
 
 
 def main() -> None:
@@ -2351,8 +2764,9 @@ def main() -> None:
     by_path.update(remaining_methods_paths(device, k1_ms))
     by_path["ddpm"] = ddpm_path(device, attn_ms)
     by_path.update(ddpm_train_paths(device))
+    ddpm_eval_path(device)
     by_path.update(stl10_path(device))
-    by_path["sd"] = sd_path(device, sd_attn_rows)
+    by_path.update(sd_path(device, sd_attn_rows))
     log(f"TF32 on the main paths: {tf32_settings()}")
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()

@@ -190,14 +190,15 @@ def _jax_unet_path(name: str) -> str:
     return k.replace(".", "/")
 
 
-def sd_mask_to_jax(mask: Dict[str, torch.Tensor]) -> dict:
+def sd_mask_to_jax(mask: Dict[str, torch.Tensor], dtype=np.int8) -> dict:
     """``{CompVis U-Net name: 0/1 tensor}`` → a JAX mask pytree of int8
-    (flax names, HWIO), as ``load_unet_mask`` builds it."""
+    (flax names, HWIO), as ``load_unet_mask`` builds it; any U-Net-shaped
+    dict (weights) with another ``dtype``."""
     flat = {}
     for name, t in mask.items():
         base, leaf = name.rsplit(".", 1)
         path = _jax_unet_path(base)
-        v = t.detach().cpu().numpy().astype(np.int8)
+        v = t.detach().cpu().numpy().astype(dtype)
         if leaf == "bias":
             flat[path + "/bias"] = v
         elif v.ndim == 4:

@@ -57,7 +57,7 @@ def main(argv=None):
     args = parse_args(argv)
     if args.dp > 1:
         raise NotImplementedError("--dp is not ported yet (ROADMAP queue 1, "
-                                  "slice D)")
+                                  "item 7)")
     device = resolve_device(args.device)
     set_tf32(True)
     seed_all(args.seed)

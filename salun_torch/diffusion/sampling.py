@@ -7,7 +7,7 @@ noise comes from a ``torch.Generator`` or is injected (``noise``: one
 tensor per step). CFG sampling runs one U-Net forward per step on the
 doubled batch (``cfg_eps``). SD's DDIM uses the ldm grid
 (:func:`ldm_uniform_timesteps`) and ᾱ₀ at the −1 boundary
-(``final_alpha_bar``); ``plms_steps`` waits (ROADMAP queue 1, slice D).
+(``final_alpha_bar``); ``plms_steps`` waits (ROADMAP queue 1, item 4).
 """
 
 from __future__ import annotations

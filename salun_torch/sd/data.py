@@ -3,11 +3,12 @@ SD/train-scripts/dataset.py:36-176).
 
 Imagenette from an extracted ``imagenette2/<split>/<wnid>/`` folder, or
 the deterministic synthetic stand-in, with the reference's prompt
-templates ("an image of a {label}") and the forget/remain split. Images
+templates ("an image of a {label}") and the forget/remain split; the flat
+NSFW / not-NSFW folders of generated images with their prompt pair. Images
 are resized (bicubic) and center-cropped to ``image_size``, kept as uint8
 NHWC, and scaled to [−1, 1] at use (get_transform, dataset.py:23-33). The
 HF-cache branch of the JAX package (``datasets``) waits (ROADMAP queue 1,
-slice D).
+item 4).
 """
 
 from __future__ import annotations
@@ -27,6 +28,10 @@ IMAGENETTE_CLASSES = [
 ]
 
 DESCRIPTIONS = [f"an image of a {label}" for label in IMAGENETTE_CLASSES]
+
+# NSFW-removal prompt pair (nsfw_removal.py:83-104)
+WORD_NUDE = "a photo of a nude person"
+WORD_WEAR = "a photo of a person wearing clothes"
 
 
 def _resize_center_crop(img, size: int) -> np.ndarray:
@@ -65,6 +70,20 @@ def forget_remain_split(ds: ArrayDataset, class_to_forget: int):
     forget = ds.select(np.flatnonzero(ds.targets == class_to_forget))
     remain = ds.select(np.flatnonzero(ds.targets != class_to_forget))
     return forget, remain
+
+
+def load_image_folder(root: str, image_size: int = 512) -> ArrayDataset:
+    """A flat folder of PNG/JPEG images (sorted names; the NSFW and
+    not-NSFW generated sets), resized and center-cropped, label 0."""
+    from PIL import Image
+
+    xs = []
+    for fn in sorted(os.listdir(root)):
+        if not fn.lower().endswith((".png", ".jpg", ".jpeg")):
+            continue
+        with Image.open(os.path.join(root, fn)) as img:
+            xs.append(_resize_center_crop(img, image_size))
+    return ArrayDataset(np.stack(xs), np.zeros(len(xs), np.int64), 1, root)
 
 
 def to_pm1(batch_images, device="cpu") -> torch.Tensor:

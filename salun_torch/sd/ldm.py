@@ -4,9 +4,11 @@ of ``salun/sd/ldm.py``.
 The used subset of SD/ldm/models/diffusion/ddpm.py: ``register_schedule``
 (ldm "linear" = √-space linspace), ``get_input`` (VAE encode × 0.18215 and
 CLIP encode, ddpm.py:913-973), ``q_sample``, ``apply_model``,
-``p_losses``/``shared_step`` (ddpm.py:1093-1096, 1286-1319), and DDIM
-sampling with classifier-free guidance (ldm/models/diffusion/ddim.py,
-SD/eval-scripts/generate-images.py).
+``p_losses``/``shared_step`` (ddpm.py:1093-1096, 1286-1319) and its form
+on cached posterior moments and contexts, DDIM sampling with
+classifier-free guidance (ldm/models/diffusion/ddim.py,
+SD/eval-scripts/generate-images.py) and ESD's partial chain that stops at
+a timestep (train-esd.py:240-291).
 
 :class:`SDModules` holds the three ``nn.Module``s (JAX threads a params
 dict). The VAE and CLIP are frozen: they run under ``torch.no_grad()``
@@ -134,8 +136,17 @@ class SDModules:
                     noise=None, generator=None):
         """get_input + p_losses (ddpm.py:1093-1096). Draws not given come
         from ``generator`` in JAX's key order: posterior, t, noise."""
-        z0 = self.encode_image(images, posterior, generator)
-        context = self.encode_text(input_ids)
+        return self.shared_step_cached(
+            self.encode_image_moments(images), self.encode_text(input_ids),
+            posterior=posterior, t=t, noise=noise, generator=generator)
+
+    def shared_step_cached(self, moments, context, *, posterior=None,
+                           t=None, noise=None, generator=None):
+        """``shared_step`` from cached posterior moments and CLIP context:
+        the same draws in the same order, so the same loss."""
+        if posterior is None:
+            posterior = _randn(moments[0].shape, generator, self.device)
+        z0 = self.latent_from_moments(moments, posterior.to(self.device))
         t = self.draw_t(z0.shape[0], generator) if t is None else t
         if noise is None:
             noise = _randn(z0.shape, generator, self.device)
@@ -170,7 +181,7 @@ class SDModules:
         """Text → images in [0, 1], NCHW, by DDIM with CFG against the
         empty prompt (ddim.py / generate-images.py): the ldm grid without
         its last entry (the fork's DDIMSampler, ddim.py:224) and ᾱ₀ at the
-        boundary. PLMS waits (ROADMAP queue 1, slice D)."""
+        boundary. PLMS waits (ROADMAP queue 1, item 4)."""
         n = len(prompts)
         max_len = self.clip.cfg.max_length
         ctx_c = self.encode_text(tokenize(prompts, max_len))
@@ -185,3 +196,47 @@ class SDModules:
             final_alpha_bar=float(self.schedule.alphas_cumprod[0]))
         img = self.decode_latent(z)
         return torch.clamp((img + 1.0) / 2.0, 0.0, 1.0)
+
+    def ddim_transition(self, eps_fn, z, t: int, t_next: int,
+                        final_alpha_bar: float):
+        """One deterministic DDIM step t → t_next (ᾱ at t_next = −1 is
+        ``final_alpha_bar``)."""
+        n = z.shape[0]
+        sched = self.schedule
+        tt = torch.full((n,), t, dtype=torch.long, device=self.device)
+        at = sched.alpha_bar(tt).reshape(-1, 1, 1, 1)
+        if t_next < 0:
+            at_next = torch.full_like(at, final_alpha_bar)
+        else:
+            at_next = sched.alpha_bar(torch.full_like(tt, t_next)).reshape(
+                -1, 1, 1, 1)
+        et = eps_fn(z, tt.to(torch.float32))
+        x0_t = (z - et * torch.sqrt(1.0 - at)) / torch.sqrt(at)
+        return torch.sqrt(at_next) * x0_t + torch.sqrt(1.0 - at_next) * et
+
+    @torch.no_grad()
+    def partial_sample_latent(self, ctx, *, t_target: int, steps: int,
+                              image_size: int, guidance: float = 0.0,
+                              uncond_ctx=None, generator=None,
+                              initial_latents=None):
+        """Denoise from noise down to (not through) timestep ``t_target``
+        (quick_sample_till_t, train-esd.py:240-291; ddim.py:280-281): the
+        transitions seq[k] → seq[k−1] of the fork's DDIM grid (ldm's
+        +1-shifted grid without its last entry) over the points at or
+        above ``t_target``, so the chain stops on the lowest of them. With
+        ``guidance`` and ``uncond_ctx`` each eps is CFG-combined."""
+        seq = [s for s in ldm_uniform_timesteps(
+            self.schedule.num_timesteps, steps)[:-1] if s >= t_target]
+        z = (self.initial_latents(ctx.shape[0], image_size, generator)
+             if initial_latents is None
+             else initial_latents.to(self.device, torch.float32))
+        if len(seq) < 2:  # nothing above the target: pure noise
+            return z
+        if guidance and uncond_ctx is not None:
+            eps_fn = self.cfg_eps_fn(ctx, uncond_ctx, guidance)
+        else:
+            def eps_fn(zz, tt):
+                return self.apply_model(zz, tt, ctx)
+        for t, t_next in zip(reversed(seq[1:]), reversed(seq[:-1])):
+            z = self.ddim_transition(eps_fn, z, t, t_next, 1.0)
+        return z

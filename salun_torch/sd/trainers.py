@@ -1,35 +1,47 @@
-"""SD concept-erasure trainers, the SalUn part: counterpart of
-``salun/sd/trainers.py``.
+"""SD concept-erasure trainers: counterpart of ``salun/sd/trainers.py``.
 
 - :func:`sd_generate_mask` (SD/train-scripts/generate_mask.py:8-211):
   |Σ∇| over U-Net parameters of −MSE(noise, (1+g)·e_c − g·e_∅) on the
   forget images, accumulated in fp32, exact global top-k
   (``salun_torch.core.mask``), uint8 masks.
-- :func:`make_random_label_step` (random_label.py:13-156), uncached: the
-  remain ``shared_step`` plus MSE(out, pseudo.detach()) with two
-  independent posterior draws of the same forget images sharing t and
-  noise; total = forget + α·remain; grads masked (``with_mask``), Adam over
-  the ``train_method`` subset (:func:`make_sd_optimizer`).
+- :func:`make_random_label_step` (random_label.py:13-156): the remain
+  ``shared_step`` plus MSE(out, pseudo.detach()) with two independent
+  posterior draws of the same forget images sharing t and noise; total =
+  forget + α·remain; grads masked (``with_mask``), Adam over the
+  ``train_method`` subset (:func:`make_sd_optimizer`). ``cached="forget"``
+  or ``"all"`` reads VAE posterior moments and CLIP contexts precomputed
+  by :func:`make_cache_batch_fn` instead of re-encoding: the same draws in
+  the same order, so the same loss to float rounding.
+  ``make_nsfw_removal_step`` is the same step (nsfw_removal.py:83-104).
+- :func:`make_gradient_ascent_step` (gradient_ascent.py:14-121):
+  −shared_step(forget) + α·shared_step(remain).
+- :func:`proximal_ratio` and :func:`proximal_shrink`
+  (proximal_gradient.py:144-180): after each step a global soft threshold
+  of the U-Net toward θ_init, τ the exact k-th value of |θ − θ₀|.
+- :func:`make_esd_step` (train-esd.py:270-311): the student denoises to
+  z_t under CFG, a frozen copy of the U-Net (the teacher) gives the target
+  e₀ − g·(e_p − e₀), and the student's e_n on the erased prompt is fit to
+  it.
 
 Parameter names are CompVis's (``input_blocks.4.1...``). Random draws are
 injected (``draws``) or come from a ``torch.Generator`` in the order of
-JAX's keys. Gradient ascent, nsfw_removal, proximal, ESD and the cached
-step are not ported yet (ROADMAP queue 1, slice D).
+JAX's keys.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Optional, Sequence
 
 import torch
 
 from salun_torch.core.mask import generate_masks
 from salun_torch.core.masked_opt import mask_grads
+from salun_torch.diffusion.sampling import _seq_pairs, ldm_uniform_timesteps
+from salun_torch.dist.topk import kth_largest
 
 from .clip_text import tokenize
 from .ldm import SDModules
-
-NOT_PORTED = "ROADMAP queue 1, slice D"
 
 
 # ------------------------------------------------------- trainable subsets
@@ -171,60 +183,127 @@ def sd_generate_mask(sd: SDModules, forget_images: torch.Tensor, prompts,
             for t, ms in masks.items()}
 
 
-# ----------------------------------------------------------- RL
+# ----------------------------------------------------------- RL / GA
+
+
+def _draw(given, shape, generator, device, low=None, high=None):
+    """An injected draw on ``device``, or a fresh one from ``generator``:
+    normal, or integers in [low, high) when ``low`` is given."""
+    if given is not None:
+        given = torch.as_tensor(given).to(device)
+        return given if low is None else given.long()
+    if low is None:
+        return torch.randn(shape, generator=generator, device=device)
+    return torch.randint(low, high, shape, generator=generator, device=device)
+
+
+def _cached_mode(cached) -> str:
+    return {True: "all", False: ""}.get(cached, cached)
+
+
+def make_cache_batch_fn(sd: SDModules, mode: str = "all"):
+    """``cache(batch)``: the frozen stages of a random_label batch computed
+    once (trainers.py:177-209): the forget images' VAE posterior moments
+    and the forget and pseudo prompts' CLIP contexts; with ``mode="all"``
+    the remain side's too, with ``"forget"`` the remain images and ids
+    pass through raw. The result feeds ``make_random_label_step(...,
+    cached=mode)``."""
+
+    @torch.no_grad()
+    def cache(batch: dict) -> dict:
+        out = {"forget_moments": sd.encode_image_moments(
+                   batch["forget_images"]),
+               "forget_ctx": sd.encode_text(batch["forget_ids"]),
+               "pseudo_ctx": sd.encode_text(batch["pseudo_ids"])}
+        if mode == "all":
+            out["remain_moments"] = sd.encode_image_moments(
+                batch["remain_images"])
+            out["remain_ctx"] = sd.encode_text(batch["remain_ids"])
+        else:
+            out["remain_images"] = batch["remain_images"]
+            out["remain_ids"] = batch["remain_ids"]
+        return out
+
+    return cache
 
 
 def random_label_loss(sd: SDModules, batch: dict, alpha: float = 0.5, *,
-                      draws: Optional[dict] = None,
+                      cached=False, draws: Optional[dict] = None,
                       generator: Optional[torch.Generator] = None):
     """forget + α·remain (random_label.py:66-143, trainers.py:230-265).
 
     ``batch``: ``forget_images``, ``remain_images`` ([−1, 1], NCHW),
-    ``forget_ids``, ``pseudo_ids``, ``remain_ids``. ``draws`` may carry
-    ``remain_posterior``, ``remain_t``, ``remain_noise``,
-    ``forget_posterior``, ``forget_t``, ``forget_noise`` and
-    ``pseudo_posterior``; missing ones come from ``generator`` in JAX's
-    key order (k1 → the remain step's three, then k2, k3, k4, k5).
+    ``forget_ids``, ``pseudo_ids``, ``remain_ids``; cached, the fields of
+    :func:`make_cache_batch_fn`. ``draws`` may carry ``remain_posterior``,
+    ``remain_t``, ``remain_noise``, ``forget_posterior``, ``forget_t``,
+    ``forget_noise`` and ``pseudo_posterior``; missing ones come from
+    ``generator`` in JAX's key order (k1 → the remain step's three, then
+    k2, k3, k4, k5), cached or not.
     """
     d = draws or {}
     device = sd.device
-    remain_loss = sd.shared_step(
-        batch["remain_images"], batch["remain_ids"],
-        posterior=d.get("remain_posterior"), t=d.get("remain_t"),
-        noise=d.get("remain_noise"), generator=generator)
+    cached = _cached_mode(cached)
+    remain_draws = dict(posterior=d.get("remain_posterior"),
+                        t=d.get("remain_t"), noise=d.get("remain_noise"),
+                        generator=generator)
+    if cached == "all":
+        remain_loss = sd.shared_step_cached(
+            batch["remain_moments"], batch["remain_ctx"], **remain_draws)
+    else:
+        remain_loss = sd.shared_step(batch["remain_images"],
+                                     batch["remain_ids"], **remain_draws)
     # the reference calls get_input twice on the same forget images
     # (random_label.py:104-109): two independent posterior draws feed the
     # forget and pseudo forwards, which share t and the q_sample noise
-    forget = batch["forget_images"]
-    z_f = sd.encode_image(forget, d.get("forget_posterior"), generator)
-    t = d.get("forget_t")
-    t = (sd.draw_t(z_f.shape[0], generator) if t is None
-         else t.to(device).long())
-    noise = d.get("forget_noise")
-    noise = (torch.randn(z_f.shape, generator=generator, device=device)
-             if noise is None else noise.to(device))
-    z_p = sd.encode_image(forget, d.get("pseudo_posterior"), generator)
-    ctx_f = sd.encode_text(batch["forget_ids"])
-    ctx_p = sd.encode_text(batch["pseudo_ids"])
+    if cached:
+        moments = batch["forget_moments"]
+        shape = moments[0].shape
+        z_f = sd.latent_from_moments(moments, _draw(
+            d.get("forget_posterior"), shape, generator, device))
+    else:
+        z_f = sd.encode_image(batch["forget_images"],
+                              d.get("forget_posterior"), generator)
+    t = _draw(d.get("forget_t"), (z_f.shape[0],), generator, device, 0,
+              sd.schedule.num_timesteps)
+    noise = _draw(d.get("forget_noise"), z_f.shape, generator, device)
+    if cached:
+        z_p = sd.latent_from_moments(moments, _draw(
+            d.get("pseudo_posterior"), shape, generator, device))
+        ctx_f, ctx_p = batch["forget_ctx"], batch["pseudo_ctx"]
+    else:
+        z_p = sd.encode_image(batch["forget_images"],
+                              d.get("pseudo_posterior"), generator)
+        ctx_f = sd.encode_text(batch["forget_ids"])
+        ctx_p = sd.encode_text(batch["pseudo_ids"])
     out = sd.apply_model(sd.q_sample(z_f, t, noise), t, ctx_f)
     with torch.no_grad():
         pseudo = sd.apply_model(sd.q_sample(z_p, t, noise), t, ctx_p)
     return (out - pseudo).square().mean() + alpha * remain_loss
 
 
-def make_random_label_step(sd: SDModules, optimizer: SDOptimizer,
-                           alpha: float = 0.5, cached=False):
-    """One SalUn step: loss, backward, grad mask, Adam. ``step(batch,
-    generator=None, draws=None)`` returns the loss (a device tensor)."""
-    if cached:
-        raise NotImplementedError(
-            f"the cached random_label step is not ported yet ({NOT_PORTED}: "
-            f"--cache_vae_moments)")
+def gradient_ascent_loss(sd: SDModules, batch: dict, alpha: float = 0.5, *,
+                         draws: Optional[dict] = None,
+                         generator: Optional[torch.Generator] = None):
+    """−shared_step(forget) + α·shared_step(remain) (gradient_ascent.py:
+    14-121). ``draws`` may carry ``forget_posterior``, ``forget_t``,
+    ``forget_noise`` and the ``remain_`` three; missing ones come from
+    ``generator``, the forget step's first (JAX's k1, then k2)."""
+    d = draws or {}
 
+    def step(side):
+        return sd.shared_step(
+            batch[f"{side}_images"], batch[f"{side}_ids"],
+            posterior=d.get(f"{side}_posterior"), t=d.get(f"{side}_t"),
+            noise=d.get(f"{side}_noise"), generator=generator)
+
+    forget = step("forget")
+    return -forget + alpha * step("remain")
+
+
+def _make_step(loss_fn, optimizer: SDOptimizer):
     def step(batch, generator=None, draws=None):
         optimizer.zero_grad()
-        loss = random_label_loss(sd, batch, alpha, draws=draws,
-                                 generator=generator)
+        loss = loss_fn(batch, draws, generator)
         loss.backward()
         optimizer.step()
         return loss.detach()
@@ -232,15 +311,152 @@ def make_random_label_step(sd: SDModules, optimizer: SDOptimizer,
     return step
 
 
-def _not_ported(name):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported yet ({NOT_PORTED})")
+def make_random_label_step(sd: SDModules, optimizer: SDOptimizer,
+                           alpha: float = 0.5, cached=False):
+    """One SalUn step: loss, backward, grad mask, Adam. ``step(batch,
+    generator=None, draws=None)`` returns the loss (a device tensor).
+    ``cached``: False (re-encode every step, the reference's recompute),
+    ``"forget"`` or ``"all"``/True (batches from
+    :func:`make_cache_batch_fn`)."""
+    return _make_step(lambda b, d, g: random_label_loss(
+        sd, b, alpha, cached=cached, draws=d, generator=g), optimizer)
 
-    fn.__name__ = name
-    return fn
+
+def make_gradient_ascent_step(sd: SDModules, optimizer: SDOptimizer,
+                              alpha: float = 0.5):
+    """One gradient-ascent step, masked like :func:`make_random_label_step`
+    (``step(batch, generator=None, draws=None)``)."""
+    return _make_step(lambda b, d, g: gradient_ascent_loss(
+        sd, b, alpha, draws=d, generator=g), optimizer)
 
 
-make_gradient_ascent_step = _not_ported("gradient_ascent")
-make_nsfw_removal_step = _not_ported("nsfw_removal")
-proximal_shrink = _not_ported("proximal (kth_largest_threshold)")
-make_esd_step = _not_ported("esd")
+# nsfw_removal = random_label with the fixed prompt pair (nsfw_removal.py:
+# 83-104)
+make_nsfw_removal_step = make_random_label_step
+
+
+# ----------------------------------------------------------- proximal
+
+
+def proximal_ratio(mask_ratio: float, epoch: int, step_in_epoch: int,
+                   n_forget_batches: int, n_remain_batches: int,
+                   epochs: int, n_total_params: int) -> int:
+    """The reference's decaying shrink count (proximal_gradient.py:
+    144-150): ``int(mask_ratio · (total − cur)/total · n_params)`` with
+    ``total = epochs·(forget + remain batches)``, a counter that advances
+    per forget batch, and ``n_params`` the whole LatentDiffusion's (U-Net,
+    VAE and CLIP)."""
+    total = epochs * (n_forget_batches + n_remain_batches)
+    cur = epoch * (n_forget_batches + n_remain_batches) + step_in_epoch + 1
+    return int(mask_ratio * ((total - cur) / total) * n_total_params)
+
+
+@torch.no_grad()
+def proximal_shrink(params: Sequence[torch.Tensor],
+                    theta_init: Sequence[torch.Tensor],
+                    ratio: int) -> torch.Tensor:
+    """Global soft threshold toward θ_init, in place (proximal_gradient.py:
+    144-180): τ is the ``ratio``-th smallest |θ − θ₀| over every tensor
+    (the exact (n − ratio + 1)-th largest, ``dist.topk.kth_largest``);
+    entries with |θ − θ₀| ≤ τ are set to θ₀ exactly, the others move by
+    −sign(θ − θ₀)·τ. Returns τ.
+
+    The reference ranks over the whole model, where the frozen VAE and
+    CLIP contribute zero diffs at the bottom: pass ``ratio = ratio_full −
+    n_frozen``. ``ratio < 1`` means τ = 0 there, which changes nothing;
+    callers skip the shrink then."""
+    n = sum(p.numel() for p in params)
+    flat = torch.empty(n, dtype=torch.float32, device=params[0].device)
+    o = 0
+    for p, t0 in zip(params, theta_init):
+        k = p.numel()
+        torch.sub(p.reshape(-1), t0.reshape(-1), out=flat[o:o + k])
+        o += k
+    tau = kth_largest(flat.abs_(), max(n - int(ratio) + 1, 1))
+    del flat
+    for p, t0 in zip(params, theta_init):
+        d = (p - t0).to(torch.float32)
+        moved = p.to(torch.float32) - torch.sign(d) * tau
+        p.copy_(torch.where(d.abs() > tau, moved, t0.to(torch.float32)))
+    return tau
+
+
+# ----------------------------------------------------------- ESD
+
+
+def esd_bucket(t_enc: int, ddim_steps: int, num_timesteps: int):
+    """(og, og_lim): the DDPM timesteps of DDIM step ``t_enc``'s bucket,
+    ``round((t_enc/ddim_steps)·T)`` in fp32 with Python's half-to-even
+    rounding (train-esd.py:279-282; ``torch.round`` is half-to-even)."""
+    t = torch.tensor([t_enc, t_enc + 1], dtype=torch.float32)
+    og, og_lim = torch.round(t / ddim_steps * num_timesteps).to(
+        torch.int64).tolist()
+    return og, og_lim
+
+
+def partial_denoise(sd: SDModules, ctx, t_enc: int, ddim_steps: int,
+                    image_size: int, guidance: float, ctx_0, *,
+                    z=None, generator=None):
+    """Denoise from T down to DDIM step ``t_enc`` (quick_sample_till_t,
+    train-esd.py:240-252; trainers.py:403-449) under CFG against
+    ``ctx_0``: the fork's grid (ldm's +1-shifted grid without its last
+    entry) with ᾱ₀ at the boundary; the steps run down to grid index
+    ``t_enc − 1``, and ``t_enc = 0`` runs the whole chain. ``z`` (NCHW) is
+    injected or drawn from ``generator``."""
+    T = sd.schedule.num_timesteps
+    step_size = T // ddim_steps
+    seq = ldm_uniform_timesteps(T, ddim_steps)[:-1]
+    if z is None:
+        z = sd.initial_latents(ctx.shape[0], image_size, generator)
+    z = z.to(sd.device, torch.float32)
+    eps_fn = sd.cfg_eps_fn(ctx, ctx_0, guidance)
+    final_ab = float(sd.schedule.alphas_cumprod[0])
+    with torch.no_grad():
+        for t, t_next in _seq_pairs(seq):
+            if t < 1 + (t_enc - 1) * step_size:
+                break  # every later grid point is lower
+            z = sd.ddim_transition(eps_fn, z, t, t_next, final_ab)
+    return z
+
+
+def frozen_copy(unet: torch.nn.Module) -> torch.nn.Module:
+    """ESD's teacher: a copy of the U-Net with gradients off, outside any
+    optimizer and mask."""
+    return copy.deepcopy(unet).requires_grad_(False).eval()
+
+
+def make_esd_step(sd: SDModules, optimizer: SDOptimizer,
+                  teacher: torch.nn.Module, negative_guidance: float = 1.0,
+                  start_guidance: float = 3.0, ddim_steps: int = 50,
+                  image_size: int = 64):
+    """ESD step (train-esd.py:270-311). ``step(ctx_p, ctx_0, ctx_n,
+    generator=None, draws=None)``: ``t_enc`` in [0, ddim_steps), then
+    ``t_ddpm`` in [og, max(og_lim, og + 1)) (:func:`esd_bucket`), then the
+    initial ``z`` of the partial chain; each injected or drawn from
+    ``generator`` in that order (JAX's k1, k2, k3). Returns the loss and
+    ``t_enc`` (which sets how many chain steps ran)."""
+    T = sd.schedule.num_timesteps
+    device = sd.device
+
+    def step(ctx_p, ctx_0, ctx_n, generator=None, draws=None):
+        d = draws or {}
+        t_enc = int(_draw(d.get("t_enc"), (1,), generator, device, 0,
+                          ddim_steps).reshape(-1)[0])
+        og, og_lim = esd_bucket(t_enc, ddim_steps, T)
+        t_ddpm = _draw(d.get("t_ddpm"), (1,), generator, device, og,
+                       max(og_lim, og + 1))
+        z = partial_denoise(sd, ctx_p, t_enc, ddim_steps, image_size,
+                            start_guidance, ctx_0, z=d.get("z"),
+                            generator=generator)
+        t_f = t_ddpm.to(torch.float32)
+        with torch.no_grad():
+            e_0 = teacher(z, t_f, ctx_0)
+            e_p = teacher(z, t_f, ctx_p)
+            target = e_0 - negative_guidance * (e_p - e_0)
+        optimizer.zero_grad()
+        loss = (sd.apply_model(z, t_ddpm, ctx_n) - target).square().mean()
+        loss.backward()
+        optimizer.step()
+        return loss.detach(), t_enc
+
+    return step

@@ -172,6 +172,20 @@ def nhwc(t):
 # ------------------------------------------------------------- SD (tiny)
 
 
+def keep_grads():
+    """An optax transformation that passes the grads on unchanged and keeps
+    them in its state: the JAX step's gradients, read from its carry."""
+    import optax
+
+    def init(p):
+        return {"g": jax.tree.map(jnp.zeros_like, p)}
+
+    def update(g, state, p=None):
+        return g, {"g": g}
+
+    return optax.GradientTransformation(init, update)
+
+
 def sd_tiny_jax(num_timesteps=40):
     """The tiny LatentDiffusion of ``tests/test_sd.py:17-25`` (U-Net ch 32,
     VAE ch 32, CLIP width 24 with 2 layers, latents 8×8)."""
@@ -221,3 +235,50 @@ def sd_twin(jax_modules, params, remat=False):
         num_timesteps=jax_modules.schedule.num_timesteps)
     load_sd_modules(sd, sd_state_dict_from_jax(params))
     return sd
+
+
+def write_tiny_sd(tmp, seed=0):
+    """A tiny yaml of ``configs/sd/v1-inference.yaml`` (40 timesteps; U-Net
+    ch 32, one res block, ch_mult [1, 2], 2 heads; VAE ch 32, ch_mult
+    [1, 1, 1, 1]; the yaml cannot shrink CLIP, which stays full width) and
+    a CompVis checkpoint of seeded weights with every layer moved off its
+    init, under ``tmp``. Returns (yaml path, checkpoint path)."""
+    import yaml
+
+    from salun_torch.ckpt import save_compvis
+    from salun_torch.sd.config import load_sd_config, modules_from_config
+
+    with open("configs/sd/v1-inference.yaml") as f:
+        v1 = yaml.safe_load(f)
+    p = v1["model"]["params"]
+    p["timesteps"] = 40
+    p["unet_config"]["params"].update(
+        model_channels=32, num_res_blocks=1, channel_mult=[1, 2],
+        num_heads=2, attention_resolutions=[1, 2])
+    p["first_stage_config"]["params"]["ddconfig"].update(
+        ch=32, ch_mult=[1, 1, 1, 1], num_res_blocks=1)
+    cfg_path = tmp / "tiny-sd.yaml"
+    cfg_path.write_text(yaml.safe_dump(v1))
+    sd = modules_from_config(load_sd_config(str(cfg_path)), seed=seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for part in (sd.unet, sd.vae, sd.clip):
+            for t in part.parameters():
+                t.add_(0.02 * torch.randn(t.shape, generator=gen))
+    ckpt = tmp / "seeded.ckpt"
+    save_compvis(str(ckpt), sd)
+    return cfg_path, ckpt
+
+
+def write_tiny_imagenette(tmp, rng, per_class=2):
+    """``tmp/data/imagenette2/train/<wnid>/`` with ``per_class`` seeded
+    non-square (70×90) PNGs of each of 10 classes; returns ``tmp/data``."""
+    from salun_torch.cli.ddpm_sample import write_png
+
+    for c in range(10):
+        d = tmp / "data" / "imagenette2" / "train" / f"n{c:08d}"
+        d.mkdir(parents=True)
+        for i in range(per_class):
+            write_png(str(d / f"{i}.png"),
+                      rng.integers(0, 256, (70, 90, 3)).astype(np.uint8))
+    return tmp / "data"

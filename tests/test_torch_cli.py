@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port import one_torch_thread  # noqa: F401
 from salun.ckpt import import_mask, import_resnet
 from salun.models import create_model as jax_create_model
 from salun_torch.cli import generate_mask, main_random

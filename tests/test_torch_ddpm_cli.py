@@ -18,6 +18,7 @@ import pytest
 import torch
 from PIL import Image
 
+from _torch_port import one_torch_thread  # noqa: F401
 from salun.cli.ddpm_config import load_config as jax_load_config
 from salun.ckpt import import_ddpm_unet, load_ddpm_states
 from salun.ckpt.torch_import import strip_module_prefix

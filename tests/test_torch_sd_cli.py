@@ -15,53 +15,22 @@ import jax
 import numpy as np
 import pytest
 import torch
-import yaml
 
+from _torch_port import one_torch_thread  # noqa: F401
+from _torch_port import write_tiny_imagenette, write_tiny_sd
 from salun.cli.sd_train import load_unet_mask
 from salun.sd import import_compvis
 from salun.sd.config import modules_from_yaml
 from salun_torch.ckpt import (load_compvis_state_dict, load_sd_mask,
-                              save_compvis, sd_mask_to_jax)
+                              sd_mask_to_jax)
 from salun_torch.cli import sd_generate_images, sd_train
-from salun_torch.cli.ddpm_sample import write_png
-from salun_torch.sd.config import load_sd_config, modules_from_config
-
-YAML = "configs/sd/v1-inference.yaml"
 
 
 @pytest.fixture(scope="module")
 def chain(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("sd_cli")
-    with open(YAML) as f:
-        v1 = yaml.safe_load(f)
-    p = v1["model"]["params"]
-    p["timesteps"] = 40
-    p["unet_config"]["params"].update(
-        model_channels=32, num_res_blocks=1, channel_mult=[1, 2],
-        num_heads=2, attention_resolutions=[1, 2])
-    p["first_stage_config"]["params"]["ddconfig"].update(
-        ch=32, ch_mult=[1, 1, 1, 1], num_res_blocks=1)
-    cfg_path = tmp / "tiny-sd.yaml"
-    cfg_path.write_text(yaml.safe_dump(v1))
-
-    rng = np.random.default_rng(0)
-    for c in range(10):  # 10 classes × 2 non-square images
-        d = tmp / "data" / "imagenette2" / "train" / f"n{c:08d}"
-        d.mkdir(parents=True)
-        for i in range(2):
-            write_png(str(d / f"{i}.png"),
-                      rng.integers(0, 256, (70, 90, 3)).astype(np.uint8))
-
-    # seeded weights with every layer moved off its init
-    sd = modules_from_config(load_sd_config(str(cfg_path)), seed=0)
-    gen = torch.Generator().manual_seed(1)
-    with torch.no_grad():
-        for part in (sd.unet, sd.vae, sd.clip):
-            for t in part.parameters():
-                t.add_(0.02 * torch.randn(t.shape, generator=gen))
-    ckpt = tmp / "seeded.ckpt"
-    save_compvis(str(ckpt), sd)
-
+    cfg_path, ckpt = write_tiny_sd(tmp)
+    write_tiny_imagenette(tmp, np.random.default_rng(0))
     common = ["--config", str(cfg_path), "--ckpt_path", str(ckpt),
               "--data", str(tmp / "data"), "--image_size", "64",
               "--batch_size", "2", "--device", "cpu"]
@@ -140,9 +109,12 @@ def test_generate_images_writes_the_flat_layout(chain):
 
 
 @pytest.mark.parametrize("argv", [
-    ["gradient_ascent"], ["proximal"], ["nsfw_removal"], ["esd"],
-    ["random_label", "--cache_vae_moments"], ["random_label", "--dp", "2"],
-    ["random_label", "--fsdp"]], ids=" ".join)
+    ["gradient_ascent", "--dp", "2"], ["proximal", "--fsdp"],
+    ["nsfw_removal", "--dp", "2"], ["esd", "--prompt", "x", "--fsdp"],
+    ["random_label", "--cache_vae_moments", "--dp", "2"],
+    ["random_label", "--dp", "2"], ["random_label", "--fsdp"]],
+    ids=" ".join)
 def test_unported_subcommands_and_flags_raise(argv):
+    """--dp > 1 and --fsdp are not ported, on any subcommand."""
     with pytest.raises(NotImplementedError):
         sd_train.main(argv + ["--device", "cpu"])

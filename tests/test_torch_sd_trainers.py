@@ -33,7 +33,8 @@ import torch
 
 import salun.sd.trainers as jax_trainers
 import salun_torch.sd.trainers as port_trainers
-from _torch_port import nchw, sd_perturbed_params, sd_tiny_jax, sd_twin
+from _torch_port import nchw, one_torch_thread  # noqa: F401
+from _torch_port import keep_grads, sd_perturbed_params, sd_tiny_jax, sd_twin
 from salun.sd.clip_text import tokenize as jax_tokenize
 from salun_torch.ckpt import sd_mask_from_jax
 from salun_torch.sd.clip_text import tokenize
@@ -144,18 +145,6 @@ def _rl_draws(key, b):
             "pseudo_posterior": normal(k5)}
 
 
-def _keep_grads():
-    """An optax transformation that passes the grads on unchanged and keeps
-    them in its state: the JAX step's gradients, read from its carry."""
-    def init(p):
-        return {"g": jax.tree.map(jnp.zeros_like, p)}
-
-    def update(g, state, p=None):
-        return g, {"g": g}
-
-    return optax.GradientTransformation(init, update)
-
-
 def test_two_random_label_steps_match_jax(jax_modules, params):
     rng = np.random.default_rng(3)
     b = 2
@@ -179,7 +168,7 @@ def test_two_random_label_steps_match_jax(jax_modules, params):
     unet0 = frozen["unet"]
     # the JAX run: two steps with the masked Adam, the step's gradients
     # kept by a pass-through transformation in front of it
-    tx = optax.chain(_keep_grads(), jax_trainers.with_mask(
+    tx = optax.chain(keep_grads(), jax_trainers.with_mask(
         jax_trainers.make_sd_optimizer(unet0, LR, "full"),
         jax.tree.map(jnp.asarray, mask)))
     step = jax_trainers.make_random_label_step(jax_modules, tx, alpha=ALPHA)

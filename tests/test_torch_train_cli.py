@@ -22,6 +22,7 @@ import torch
 
 import salun_torch.cli.main_random as main_random
 import salun_torch.core.masked_opt as masked_opt
+from _torch_port import one_torch_thread  # noqa: F401
 from salun.ckpt import import_resnet
 from salun_torch.ckpt import save_model
 from salun_torch.cli import main_forget, main_train
