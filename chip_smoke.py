@@ -191,7 +191,39 @@ Phases, each of which fails the script (exit code 1) when it fails:
    bitwise; the cached run's losses equal phase 6's first 4 within 1e-4
    relative. Prints ms per step over steps 2+, proximal's peak memory and
    the cache's precompute seconds.
-7. A ``{"kernels": [...]}`` line (launches per path and in all; K1's
+6c. The rest of SD on phase 6's seeded checkpoint, through the port's
+   API and ``salun_torch.cli.sd_eval``: ``SDModules.sample`` with
+   ``sampler="plms"`` and then ``"ddim"`` (2 prompts x 1 image, 50 steps,
+   guidance 7.5, 512x512, the same initial latents): PLMS walks the whole
+   ldm grid (51 U-Net forwards), DDIM drops its last entry (49), so K2 and
+   K4 must launch exactly two U-Net forwards' worth more on PLMS (each
+   call's launches are also checked in full); images finite in [0, 1];
+   the seconds of both printed. A 4-step PLMS chain through K2/K4 against
+   the same chain with their plain versions in their place (TF32 off,
+   cuDNN deterministic): latents within 1e-3 of max(1, max|plain|).
+   ``sd_eval imageclassify`` over the 4 PNGs with the prompts CSV and a
+   seeded torchvision-format ResNet-50 ``.pth``, on the card and on the
+   CPU: the merged CSV's columns and rows, top-1 equal (images/s printed);
+   ``compute_fid`` between two folders of 32 synthetic PNGs (finite) and
+   of one against itself (≤ 1e-6 x max(1, tr Σ)); ``nudenet`` stops with
+   its instructions (no package there). The diffusers export of
+   random_label's U-Net written and imported back bitwise. Then on phase
+   4's ResNet-18, 0.5 mask and CIFAR-shaped data: 20 steps of masked Adam
+   (``build_optimizer(kind="adam")``) over RL's forget loss: masked-out
+   weights θ₀ bitwise, both moments 0 there (ms/step printed); the
+   12,000 arrays packed as spack and 64 random gathers of 256 records by
+   the native reader (the port's ``csrc/spack.cc``, built with g++) equal
+   to the arrays bitwise, GB/s against the numpy reader's;
+   ``device_prefetch`` batches bitwise equal to a direct ``.to(device)``,
+   and a ResNet-18 SGD step fed each way in turns (the overlap printed);
+   ImageNet from a seeded ``datasets.save_to_disk`` folder (512 + 128
+   non-square images, 8 of the 1,000 classes, decoded at 224):
+   ``ImageNetLoader``'s validation batches through ``device_prefetch``
+   equal ``imagenet()``'s arrays bitwise, then ``main_forget --dataset
+   imagenet --imagenet_arch`` (ResNet-18, FT, 1 epoch, bs 64): metrics
+   finite, K1 never launched.
+7. A ``{"kernels": [...]}`` line (launches per path and in all, PLMS's
+   as ``sd_plms``; K1's
    ResNet-18 row counts the ResNet-18 paths, its vgg16_bn and ResNet-50
    rows their RL paths, its boundary_expanding row that call; K3a's and
    K3b's D = 512 rows their launches at D = 512 on STL-10), the card's
@@ -323,6 +355,21 @@ SD_ROWS, SD_SAMPLES, SD_STEPS, SD_GUIDANCE = 2, 2, 50, 7.5
 # in those zeros and τ = 0)
 SD_NSFW_IMAGES, SD_ESD_ITERS, SD_PROX_RATIO = 8, 4, 0.9
 SD_CACHE_TOL = 1e-4  # relative, cached against uncached losses (TF32 on)
+# phase 6c: PLMS against DDIM from the same latents (SD_ROWS prompts x 1
+# image at SD_STEPS), a short PLMS chain through the kernels against their
+# plain versions (TF32 off), sd_eval (imageclassify, compute_fid,
+# nudenet), the diffusers export; then masked Adam, spack and
+# device_prefetch on phase 4's ResNet-18, mask and CIFAR-shaped arrays
+PLMS_CHECK_STEPS = 4
+PLMS_TOL = 1e-3  # × max(1, max|plain|): the latents after PLMS_CHECK_STEPS
+FID_IMAGES = 32  # synthetic PNGs in each compute_fid folder
+ADAM_STEPS, ADAM_LR = 20, 1e-4
+SPACK_BATCHES = 64  # random gathers of BATCH records timed per reader
+PREFETCH_STEPS = 24  # ResNet-18 SGD steps timed per transfer
+# ImageNet: a seeded save_to_disk folder, decoded at 224 (the reference's
+# eval size), cut in count from ImageNet-1k's 1.28M/50,000 images
+IMAGENET_TRAIN, IMAGENET_VAL, IMAGENET_CLASSES = 512, 128, 8
+IMAGENET_BS, IMAGENET_FORGET = 64, 32
 
 # phase 5c: FID/Inception and the DDPM classifier on phase 5b's samples
 INCEPTION_CHECK, INCEPTION_TOL = 8, 1e-4  # images; × max(1, max|CPU|)
@@ -2500,6 +2547,7 @@ def sd_path(device, attn_rows) -> dict:
     total = {k: sum(g[k] for g in got.values()) for k in names}
     rest = sd_rest_paths(device, work, ckpt, mask_file, cfg,
                          result["losses"])
+    rest.update(sd_sample_eval_paths(device, work, ckpt, cfg, rows))
     shutil.rmtree(work, ignore_errors=True)
     return {"sd": total, **rest}
 
@@ -2719,6 +2767,562 @@ def sd_rest_paths(device, work: Path, ckpt: Path, mask_file: Path, cfg,
     return by_path
 
 
+# ----------------------------------------------------------------- phase 6c
+
+
+def _plain_sd_kernels():
+    """Swap K2's and K4's wrappers for their plain versions where the SD
+    models call them (``kernels.attention`` imports K2's by name); returns
+    a function that puts the wrappers back."""
+    from salun_torch.kernels import attention
+    from salun_torch.kernels import flash_attention as fa
+    from salun_torch.kernels import groupnorm_silu as gn
+
+    def plain_fwd(q, k, v, scale, need_lse=False):
+        o, lse = fa.flash_attention_fwd_reference(q, k, v, scale)
+        return o, (lse if need_lse else None)
+
+    saved = [(fa, "flash_attention_fwd", fa.flash_attention_fwd),
+             (attention, "flash_attention_fwd", attention.flash_attention_fwd),
+             (gn, "groupnorm_silu", gn.groupnorm_silu)]
+    fa.flash_attention_fwd = attention.flash_attention_fwd = plain_fwd
+    gn.groupnorm_silu = gn.groupnorm_silu_reference
+
+    def restore():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+    return restore
+
+
+def plms_vs_ddim(device, ckpt: Path, cfg, rows) -> tuple:
+    """PLMS and DDIM at SD_STEPS from the same latents through
+    ``SDModules.sample``, each call's launches counted (PLMS must launch
+    exactly two U-Net forwards' worth of K2 and K4 more than DDIM); then
+    PLMS_CHECK_STEPS of PLMS through the kernels against the same chain
+    with their plain versions. Returns (PLMS launches, images in [0, 1]
+    as uint8 NHWC of both samplers)."""
+    import torch
+
+    from salun_torch.ckpt import load_compvis_state_dict, load_sd_modules
+    from salun_torch.diffusion.sampling import ldm_uniform_timesteps
+    from salun_torch.sd.config import modules_from_config
+    from salun_torch.sd.unet import kernel_sites
+    from salun_torch.utils.device import set_tf32
+
+    sd = modules_from_config(cfg, device, seed=0)
+    load_sd_modules(sd, load_compvis_state_dict(str(ckpt)))
+    prompts = [str(r["prompt"]) for r in rows]
+    n, side = len(prompts), SD_IMAGE // 8
+    z = sd.initial_latents(n, side, torch.Generator(device).manual_seed(13))
+    kernels = _sd_kernels()
+    names = list(kernels)
+    unet = kernel_sites(cfg.unet)
+    dec = 2 * len(cfg.vae.ch_mult) * (cfg.vae.num_res_blocks + 1) + 5
+    grid = len(ldm_uniform_timesteps(cfg.timesteps, SD_STEPS))
+    n_fwd = {"plms": grid + 1, "ddim": grid - 1}
+    got, seconds, images = {}, {}, {}
+    for sampler in ("plms", "ddim"):
+        for f in kernels.values():
+            f.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = sd.sample(prompts, guidance=SD_GUIDANCE, steps=SD_STEPS,
+                        image_size=side, sampler=sampler,
+                        initial_latents=z)
+        torch.cuda.synchronize()
+        seconds[sampler] = time.perf_counter() - t0
+        got[sampler] = {k: f.launches for k, f in kernels.items()}
+        want = dict(zip(names, (0, n_fwd[sampler] * unet["k2"] + 1, 0, 0,
+                                n_fwd[sampler] * unet["k4"] + dec, 0)))
+        if got[sampler] != want:
+            fail(f"SD {sampler}: launches {got[sampler]}, the path implies "
+                 f"{want}")
+        if not (tuple(img.shape) == (n, 3, SD_IMAGE, SD_IMAGE)
+                and bool(torch.isfinite(img).all())
+                and 0.0 <= float(img.min()) <= float(img.max()) <= 1.0):
+            fail(f"SD {sampler} images {tuple(img.shape)} in "
+                 f"[{float(img.min())}, {float(img.max())}]")
+        images[sampler] = (img.permute(0, 2, 3, 1).cpu().numpy() * 255
+                           ).astype("uint8")
+    extra = {k: got["plms"][k] - got["ddim"][k] for k in names}
+    if extra != dict(zip(names, (0, 2 * unet["k2"], 0, 0, 2 * unet["k4"],
+                                 0))):
+        fail(f"PLMS launched {extra} more than DDIM, not two U-Net "
+             f"forwards' worth")
+    log(f"SD PLMS vs DDIM ({n} prompts x 1 image, {SD_STEPS} steps, "
+        f"guidance {SD_GUIDANCE}, {SD_IMAGE}x{SD_IMAGE}, the same latents): "
+        f"U-Net forwards {n_fwd['plms']} against {n_fwd['ddim']}; launches "
+        f"PLMS {got['plms']}, DDIM {got['ddim']}, PLMS - DDIM = two "
+        f"forwards ({extra}); images finite in [0, 1]; seconds PLMS "
+        f"{seconds['plms']:.3f}, DDIM {seconds['ddim']:.3f} (ratio "
+        f"{seconds['plms'] / seconds['ddim']:.4f}, forwards ratio "
+        f"{n_fwd['plms'] / n_fwd['ddim']:.4f})")
+
+    # the short chain: kernels against their plain versions, TF32 off and
+    # cuDNN deterministic, so the two kernels are all that differs
+    set_tf32(False)
+    was = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    try:
+        def chain():
+            return sd.sample(prompts, guidance=SD_GUIDANCE,
+                             steps=PLMS_CHECK_STEPS, image_size=side,
+                             sampler="plms", initial_latents=z,
+                             return_latents=True)
+
+        for f in kernels.values():
+            f.launches = 0
+        fast = chain()
+        torch.cuda.synchronize()
+        check = {k: f.launches for k, f in kernels.items()}
+        restore = _plain_sd_kernels()
+        try:
+            plain = chain()
+            torch.cuda.synchronize()
+        finally:
+            restore()
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = was
+        set_tf32(True)
+    fwd = len(ldm_uniform_timesteps(cfg.timesteps, PLMS_CHECK_STEPS)) + 1
+    if check != dict(zip(names, (0, fwd * unet["k2"], 0, 0,
+                                 fwd * unet["k4"], 0))):
+        fail(f"the {PLMS_CHECK_STEPS}-step PLMS chain launched {check}")
+    scale = max(1.0, float(plain.abs().max()))
+    err = float((fast - plain).abs().max()) / scale
+    if not (bool(torch.isfinite(fast).all()) and err <= PLMS_TOL):
+        fail(f"PLMS through K2/K4 differs from the plain chain by {err:.3e} "
+             f"of max(1, max|plain|) = {scale:.3f} (tolerance {PLMS_TOL})")
+    log(f"PLMS {PLMS_CHECK_STEPS} steps ({fwd} U-Net forwards, launches "
+        f"{check}) through K2/K4 against their plain versions: latents "
+        f"within {err:.3e} of max(1, max|plain|) = {scale:.3f} (tolerance "
+        f"{PLMS_TOL}, TF32 off)")
+    del sd
+    return got["plms"], images
+
+
+def write_classifier_weights(path: Path) -> None:
+    """A seeded torchvision-format ResNet-50 state dict (ImageNet stem,
+    1,000 classes) with BatchNorm statistics moved off their init; the fc
+    is scaled by 1/60, since the seeded features give logits spread ~120
+    over the classes and the softmax would underflow to ties at 0."""
+    import torch
+
+    from salun_torch.models import create_model
+
+    model = create_model("resnet50", 1000, imagenet=True, seed=3)
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.copy_(0.1 * torch.randn(m.running_mean.shape,
+                                                       generator=gen))
+                m.running_var.copy_(0.5 + torch.rand(m.running_var.shape,
+                                                     generator=gen))
+        model.fc.weight.div_(60.0)
+    torch.save(model.state_dict(), path)
+
+
+def sd_eval_checks(device, work: Path, rows, images) -> None:
+    """``salun_torch.cli.sd_eval``: imageclassify over the PLMS and DDIM
+    PNGs with the prompts CSV on the card and on the CPU (top-1 equal),
+    compute_fid between two synthetic folders and of one against itself,
+    nudenet without the package."""
+    import csv as csv_mod
+
+    import numpy as np
+
+    from salun_torch.cli import sd_eval
+    from salun_torch.cli.ddpm_evaluator import read_images_folder
+    from salun_torch.cli.ddpm_sample import write_png
+    from salun_torch.evalx.inception import build_inception, make_feature_fn
+
+    folder = work / "plms_ddim"
+    folder.mkdir()
+    for j, r in enumerate(rows):
+        for i, sampler in enumerate(("plms", "ddim")):
+            write_png(str(folder / f"{r['case_number']}_{i}.png"),
+                      images[sampler][j])
+    prompts = work / "prompts.csv"
+    weights = work / "resnet50.pth"
+    write_classifier_weights(weights)
+    out = []  # the card twice (cold, then warm), then the CPU
+    for i, dev in enumerate((device, device, "cpu")):
+        path = work / f"classify_{i}.csv"
+        stats = sd_eval.main(["imageclassify", "--folder_path", str(folder),
+                              "--prompts_path", str(prompts), "--save_path",
+                              str(path), "--classifier_weights", str(weights),
+                              "--batch_size", "4", "--device", str(dev)])
+        with open(path, newline="") as f:
+            out.append((list(csv_mod.reader(f)), stats))
+    (card, cold), (warm_rows, warm), (cpu, _) = out
+    header = ["", "case_number", "prompt", "evaluation_seed"] + [
+        f"{w}_top{k}" for k in range(1, 6)
+        for w in ("category", "index", "scores")]
+    n_img = 2 * len(rows)
+    if card[0] != header or cpu[0] != header or len(card) != n_img + 1:
+        fail(f"imageclassify CSV header {card[0]}, {len(card) - 1} rows")
+    col = header.index("index_top1")
+    top1 = [r[col] for r in card[1:]]
+    if top1 != [r[col] for r in cpu[1:]] or top1 != [
+            r[col] for r in warm_rows[1:]]:
+        fail(f"imageclassify top-1 on the card {top1} differs from the "
+             f"CPU's {[r[col] for r in cpu[1:]]}")
+    log(f"sd_eval imageclassify ({n_img} PNGs, ResNet-50 at 224, seeded "
+        f".pth, prompts CSV): {len(card) - 1} rows, columns as the JAX "
+        f"CLI's, top-1 {top1} equal to the CPU run's and to a second card "
+        f"call's; on the card (batch 4, TF32 off) "
+        f"{cold['images'] / cold['seconds']:.1f} images/s in a first call "
+        f"({cold['seconds']:.4f} s: cuDNN's algorithm choice included), "
+        f"{warm['images'] / warm['seconds']:.1f} in a second "
+        f"({warm['seconds']:.4f} s)")
+
+    for name, seed in (("fid_a", 21), ("fid_b", 22)):
+        write_png_folder(work / name, FID_IMAGES, seed)
+    a, b = str(work / "fid_a"), str(work / "fid_b")
+    fid_ab = sd_eval.main(["compute_fid", a, b, "--device", str(device)])
+    fid_aa = sd_eval.main(["compute_fid", a, a, "--device", str(device)])
+    pool = make_feature_fn(build_inception(None, device), 32)(
+        read_images_folder(a))[0]
+    trace = float(np.trace(np.cov(pool, rowvar=False)))
+    if not (math.isfinite(fid_ab) and fid_ab > 0
+            and abs(fid_aa) <= FID_SELF_TOL * max(1.0, trace)):
+        fail(f"compute_fid: {fid_ab} between two folders, {fid_aa} of one "
+             f"against itself (tr Σ {trace})")
+    log(f"sd_eval compute_fid ({FID_IMAGES} + {FID_IMAGES} synthetic PNGs, "
+        f"seeded Inception): {fid_ab:.4f}; a folder against itself "
+        f"{fid_aa:.3e} (≤ {FID_SELF_TOL} x max(1, tr Σ = {trace:.4e}))")
+
+    try:
+        sd_eval.main(["nudenet", "--folder", str(folder), "--prompts_path",
+                      str(prompts), "--save_path", str(work / "nude.csv")])
+    except SystemExit as e:
+        if "nudenet is not installed" not in str(e):
+            fail(f"sd_eval nudenet stopped with {e}")
+        log("sd_eval nudenet: the package is absent, the CLI stops with its "
+            "instructions")
+    else:
+        fail("sd_eval nudenet ran without the nudenet package's guard")
+
+
+def diffusers_export_check(trained: Path, cfg) -> None:
+    """The trained U-Net of ``trained`` (a CompVis .ckpt) through
+    ``save_diffusers_unet`` and back through ``import_diffusers_unet``, in
+    the layout of ``cfg``'s U-Net: every key mapped once, the round trip
+    bitwise."""
+    import torch
+
+    from salun_torch.ckpt import load_compvis_state_dict
+    from salun_torch.sd.diffusers_export import (import_diffusers_unet,
+                                                 save_diffusers_unet)
+
+    prefix = "model.diffusion_model."
+    unet = {k[len(prefix):]: v for k, v in
+            load_compvis_state_dict(str(trained)).items()
+            if k.startswith(prefix)}
+    u = cfg.unet
+    layout = {"num_levels": len(u.channel_mult),
+              "num_res_blocks": u.num_res_blocks,
+              "attn_levels": tuple(lv for lv in range(len(u.channel_mult))
+                                   if 2 ** lv in u.attention_resolutions)}
+    path = trained.parent / "diffusers_unet.bin"
+    t0 = time.perf_counter()
+    save_diffusers_unet(unet, str(path), **layout)
+    back = import_diffusers_unet(
+        torch.load(path, map_location="cpu", weights_only=True), unet,
+        **layout)
+    seconds = time.perf_counter() - t0
+    n = sum(v.numel() for v in unet.values())
+    if list(back) != list(unet) or not all(torch.equal(back[k], v)
+                                           for k, v in unet.items()):
+        fail("the diffusers export of the trained U-Net does not import "
+             "back bitwise")
+    log(f"diffusers export of random_label's U-Net ({layout}): "
+        f"{len(unet)} keys ({n} parameters) written and imported back "
+        f"bitwise in "
+        f"{seconds:.3f} s")
+    path.unlink()
+
+
+def sd_sample_eval_paths(device, work: Path, ckpt: Path, cfg, rows) -> dict:
+    """Phase 6c's SD part; returns the PLMS call's launches."""
+    import gc
+
+    import torch
+
+    t0 = time.perf_counter()
+    launches, images = plms_vs_ddim(device, ckpt, cfg, rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sd_eval_checks(device, work, rows, images)
+    diffusers_export_check(work / "rl" / "compvis.ckpt", cfg)
+    log(f"phase 6c (SD): {time.perf_counter() - t0:.3f} s")
+    return {"sd_plms": launches}
+
+
+def masked_adam_path(device) -> None:
+    """ADAM_STEPS of masked Adam (``build_optimizer(kind="adam")``) on
+    phase 4's seeded ResNet-18 with its 0.5 mask over RL's forget loss
+    (random labels on the forget batches): masked-out weights stay θ₀ and
+    both moments 0 there, bitwise."""
+    import torch
+
+    from salun_torch.ckpt import load_mask
+    from salun_torch.cli.setup import load_model
+    from salun_torch.core.masked_opt import FlatParams, build_optimizer
+    from salun_torch.core.methods.common import mask_tensors
+    from salun_torch.core.train import generator_source, train_step
+    from salun_torch.data.loader import to_device
+    from salun_torch.models import create_model
+    from salun_torch.utils.device import make_generator
+
+    model = create_model("resnet18", 10, seed=0, device=device)
+    load_model(model, str(WORK / "resnet18_seed0.pt"))
+    mask = load_mask(str(WORK / "out" / "with_0.5.pt"), device)
+    flat = FlatParams(model.parameters())
+    theta0 = flat.flat.clone()
+    keep = flat.flatten(mask_tensors(model, mask))
+    opt = build_optimizer(flat, ADAM_LR, mask=keep, theta0=theta0,
+                          kind="adam")
+    loaders, _, _ = unlearn_loaders([
+        "--dataset", "cifar10", "--data", str(WORK / "data"), "--arch",
+        "resnet18", "--batch_size", str(BATCH), "--num_indexes_to_replace",
+        str(N_FORGET), "--class_to_replace", "-1", "--device", "cpu"])
+    source = generator_source(make_generator(0, device), 10)
+    losses, t_first = [], 0.0
+    t0 = time.perf_counter()
+    while len(losses) < ADAM_STEPS:
+        for b in loaders["forget"]:
+            batch = to_device(b, device)
+            rand = source(batch["image"].shape[0], random_labels=True)
+            m = train_step(model, opt, batch, rand, random_labels=True)
+            losses.append(float(m["loss"]))  # synchronises
+            if len(losses) == 1:
+                t_first = time.perf_counter()
+            if len(losses) == ADAM_STEPS:
+                break
+    ms = 1e3 * (time.perf_counter() - t_first) / (ADAM_STEPS - 1)
+    out = keep == 0
+    p = flat.flat
+    if not torch.equal(p[out], theta0[out]):
+        fail("masked Adam moved a masked-out weight off θ₀")
+    if bool(opt.mu[out].any()) or bool(opt.nu[out].any()):
+        fail("masked Adam left a moment non-zero on a masked-out weight")
+    moved = int((p[~out] != theta0[~out]).sum())
+    if moved == 0 or not all(map(math.isfinite, losses)):
+        fail(f"masked Adam: {moved} kept weights moved, losses {losses}")
+    log(f"masked Adam ({ADAM_STEPS} steps, lr {ADAM_LR}, bs {BATCH}, "
+        f"ResNet-18 {p.numel()} parameters, phase 4's 0.5 mask, RL's forget "
+        f"loss): masked-out weights θ₀ bitwise, both moments 0 there; "
+        f"{moved} kept weights moved; losses finite "
+        f"{[round(x, 4) for x in losses[:3]]}..{round(losses[-1], 4)}; "
+        f"{ms:.3f} ms/step over steps 2-{ADAM_STEPS}")
+
+
+def spack_path() -> None:
+    """Phase 4's synthetic CIFAR arrays packed with ``pack_arrays``; random
+    gathers of BATCH records by the native reader against the arrays
+    (bitwise), and its GB/s against the numpy reader's."""
+    import numpy as np
+
+    from salun_torch.data.datasets import synthetic
+    from salun_torch.data.pack import SpackReader, pack_arrays
+
+    ds = synthetic(n=N_TRAIN, seed=0)
+    path = WORK / "cifar.spack"
+    t0 = time.perf_counter()
+    pack_arrays(str(path), ds.data, ds.targets)
+    t_pack = time.perf_counter() - t0
+    rng = np.random.default_rng(7)
+    batches = [rng.integers(0, N_TRAIN, BATCH) for _ in range(SPACK_BATCHES)]
+    rate = {}
+    for native in (True, False):
+        r = SpackReader(str(path), native=native)
+        if native:
+            for idx in batches:
+                flat, labels = r.gather(idx)
+                if not (np.array_equal(flat.reshape(ds.data[idx].shape),
+                                       ds.data[idx])
+                        and np.array_equal(labels, ds.targets[idx])):
+                    fail("spack's native gather differs from the arrays")
+        t0 = time.perf_counter()
+        for idx in batches:
+            r.gather(idx)
+        rate[native] = (SPACK_BATCHES * BATCH * ds.data[0].nbytes
+                        / (time.perf_counter() - t0) / 1e9)
+        r.close()
+    log(f"spack: {N_TRAIN} records of {ds.data[0].nbytes} B packed in "
+        f"{t_pack:.3f} s; {SPACK_BATCHES} random gathers of {BATCH} bitwise "
+        f"equal to the arrays; native {rate[True]:.3f} GB/s against the "
+        f"numpy reader's {rate[False]:.3f} GB/s (host, 4 threads)")
+    path.unlink()
+
+
+def device_prefetch_path(device) -> None:
+    """``device_prefetch`` batches against a direct ``.to(device)``
+    (bitwise), then PREFETCH_STEPS ResNet-18 SGD steps fed each way."""
+    import numpy as np
+    import torch
+
+    from salun_torch.core.masked_opt import SGD, FlatParams
+    from salun_torch.core.train import generator_source, train_step
+    from salun_torch.data.datasets import synthetic
+    from salun_torch.data.pipeline import device_prefetch
+    from salun_torch.models import create_model
+    from salun_torch.utils.device import make_generator
+
+    ds = synthetic(n=PREFETCH_STEPS * BATCH, seed=0)
+    host = [{"image": ds.data[i:i + BATCH], "label": ds.targets[i:i + BATCH],
+             "weight": np.ones(BATCH, np.float32)}
+            for i in range(0, len(ds), BATCH)]
+
+    def direct(b):
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                for k, v in b.items()}
+
+    for got, b in zip(device_prefetch(iter(host), device), host):
+        want = direct(b)
+        if not all(got[k].device == want[k].device
+                   and torch.equal(got[k], want[k]) for k in b):
+            fail("device_prefetch gave a batch unlike a direct .to(device)")
+    model = create_model("resnet18", 10, seed=0, device=device)
+    opt = SGD(FlatParams(model.parameters()), 0.01)
+    source = generator_source(make_generator(0, device), 10)
+
+    def run(feed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in feed:
+            batch = {"image": b["image"].permute(0, 3, 1, 2).contiguous(),
+                     "label": b["label"], "weight": b["weight"]}
+            train_step(model, opt, batch, source(BATCH))
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / len(host)
+
+    run(map(direct, host))  # warm-up
+    ms = {}
+    for order in ("direct", "prefetch", "prefetch", "direct"):
+        feed = (map(direct, host) if order == "direct"
+                else device_prefetch(iter(host), device))
+        ms.setdefault(order, []).append(run(feed))
+    log(f"device_prefetch: {len(host)} batches bitwise equal to a direct "
+        f".to(device); ResNet-18 SGD step (bs {BATCH}) fed directly "
+        f"{ms['direct']} ms, through device_prefetch {ms['prefetch']} ms "
+        f"(runs in turns; the overlap it buys: "
+        f"{min(ms['direct']) - min(ms['prefetch']):.3f} ms/step)")
+
+
+def write_imagenet_folder(root: Path) -> None:
+    """A seeded ImageNet-format ``DatasetDict`` (``image``, ``label`` of
+    1,000 classes; train and validation) written with ``save_to_disk``:
+    non-square RGB images and every fifth one grayscale, in IMAGENET_CLASSES
+    classes."""
+    import datasets
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(31)
+    classes = rng.choice(1000, IMAGENET_CLASSES, replace=False)
+
+    def split(n):
+        imgs, labels = [], []
+        for i in range(n):
+            h, w = (int(x) for x in rng.integers(160, 360, 2))
+            img = Image.fromarray(rng.integers(0, 256, (h, w, 3), np.uint8))
+            imgs.append(img.convert("L") if i % 5 == 0 else img)
+            labels.append(int(classes[i % IMAGENET_CLASSES]))
+        return datasets.Dataset.from_dict(
+            {"image": imgs, "label": labels},
+            features=datasets.Features({
+                "image": datasets.Image(),
+                "label": datasets.ClassLabel(num_classes=1000)}))
+
+    datasets.DatasetDict({"train": split(IMAGENET_TRAIN),
+                          "validation": split(IMAGENET_VAL)}
+                         ).save_to_disk(str(root))
+
+
+def imagenet_path(device) -> dict:
+    """ImageNet from a local ``save_to_disk`` folder: ``imagenet()``
+    decodes both splits at 224; ``ImageNetLoader``'s validation batches
+    through ``device_prefetch`` equal those arrays bitwise on the card;
+    then ``main_forget --dataset imagenet --imagenet_arch`` (FT, 1 epoch)
+    with finite metrics and no K1 launch. Returns its K1 launches."""
+    import numpy as np
+    import torch
+
+    from salun_torch.cli import main_forget
+    from salun_torch.data.datasets import imagenet
+    from salun_torch.data.imagenet import ImageNetLoader
+    from salun_torch.data.pipeline import device_prefetch
+    from salun_torch.kernels.masked_update import masked_sgd_update
+
+    root = WORK / "imagenet-1k"
+    write_imagenet_folder(root)
+    t0 = time.perf_counter()
+    val = imagenet(str(root), train=False)
+    t_decode = time.perf_counter() - t0
+    loader = ImageNetLoader(str(root), batch_size=IMAGENET_BS, image_size=224)
+    n = 0
+    for b in device_prefetch(loader.loaders(-1)["val"](), device):
+        k = int(b["weight"].sum())
+        want = torch.from_numpy(val.data[n:n + k]).to(device)
+        if not (torch.equal(b["image"][:k], want)
+                and np.array_equal(b["label"][:k].cpu().numpy(),
+                                   val.targets[n:n + k])):
+            fail("ImageNetLoader's batches differ from imagenet()'s arrays")
+        n += k
+    loader.close()
+    if n != IMAGENET_VAL:
+        fail(f"ImageNetLoader gave {n} validation images of {IMAGENET_VAL}")
+    masked_sgd_update.launches = 0
+    out = WORK / "imagenet_out"
+    results = main_forget.main([
+        "--dataset", "imagenet", "--data", str(root), "--arch", "resnet18",
+        "--imagenet_arch", "--batch_size", str(IMAGENET_BS), "--unlearn",
+        "FT", "--unlearn_epochs", "1", "--unlearn_lr", "0.01",
+        "--class_to_replace", str(int(val.targets[0])),
+        "--num_indexes_to_replace", str(IMAGENET_FORGET), "--save_dir",
+        str(out), "--device", str(device)])
+    torch.cuda.synchronize()
+    launches = masked_sgd_update.launches
+    check_metrics(results, "main_forget --dataset imagenet")
+    if launches:
+        fail(f"main_forget on ImageNet launched K1 {launches} times")
+    log(f"ImageNet ({IMAGENET_TRAIN} + {IMAGENET_VAL} seeded images of "
+        f"{IMAGENET_CLASSES} classes, save_to_disk): imagenet() decoded the "
+        f"validation split at 224 in {t_decode:.3f} s "
+        f"({IMAGENET_VAL / t_decode:.1f} images/s, host); ImageNetLoader's "
+        f"batches through device_prefetch equal it bitwise; main_forget "
+        f"--dataset imagenet --imagenet_arch (ResNet-18, FT 1 epoch, bs "
+        f"{IMAGENET_BS}, {IMAGENET_FORGET} forget): UA {results['UA']:.2f} "
+        f"RA {results['retain']:.2f} TA {results['test']:.2f}, unlearning "
+        f"{results['seconds']['unlearn']:.3f} s, K1 0 launches")
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(out, ignore_errors=True)
+    return {"K1 masked_sgd_update": launches}
+
+
+def scale_paths(device) -> dict:
+    """Phase 6c's rest: masked Adam, spack, device_prefetch and ImageNet,
+    with TF32 on as on the classification main path (``sd_eval`` turns it
+    off); returns the ImageNet call's K1 launches."""
+    from salun_torch.utils.device import set_tf32
+
+    set_tf32(True)
+    t0 = time.perf_counter()
+    masked_adam_path(device)
+    spack_path()
+    device_prefetch_path(device)
+    launches = imagenet_path(device)
+    log(f"phase 6c (masked Adam, spack, device_prefetch, ImageNet): "
+        f"{time.perf_counter() - t0:.3f} s")
+    return {"main_forget --dataset imagenet": launches}
+
+
 def main() -> None:
     try:
         import torch
@@ -2767,6 +3371,7 @@ def main() -> None:
     ddpm_eval_path(device)
     by_path.update(stl10_path(device))
     by_path.update(sd_path(device, sd_attn_rows))
+    by_path.update(scale_paths(device))
     log(f"TF32 on the main paths: {tf32_settings()}")
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()

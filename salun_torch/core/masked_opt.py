@@ -1,6 +1,7 @@
-"""Saliency-masked SGD over flat parameter buffers, the grad-mask-only
-SGD, and the grad-mask pieces of the DDPM optimizer
-(``clip_by_global_norm``, ``mask_grads``).
+"""Saliency-masked SGD and Adam over flat parameter buffers, the
+grad-mask-only SGD, the grad-mask pieces of the DDPM optimizer
+(``clip_by_global_norm``, ``mask_grads``) and the optimizer factory
+:func:`build_optimizer`.
 
 Counterpart of ``salun/core/masked_opt.py``. SalUn's update rule
 (reference Classification/unlearn/RL.py:11-34): masked grads, the SGD step,
@@ -12,7 +13,9 @@ buffer and their ``.grad``s views into one flat grad buffer, so that
 per step (``salun_torch.kernels.masked_update``). :class:`GradMaskSGD` is
 ``optax.chain(mask_grads(mask), sgd)``: only the gradient is masked, so
 weight decay and momentum still move masked-out weights; it is not K1's
-rule and never launches it. Grads are zeroed in
+rule and never launches it. :class:`Adam` is ``optax.adam``, grad-masked
+or fully SalUn-masked (θ₀ pinned, both moments masked), in plain tensor
+operations: the JAX package has no fused kernel for it. Grads are zeroed in
 place, never set to ``None``, so autograd accumulates into the flat buffer;
 each step checks that it still does.
 """
@@ -194,3 +197,96 @@ class GradMaskSGD(SGD):
 
     def _grad(self) -> torch.Tensor:
         return self.flat.grad * self.mask
+
+
+class Adam:
+    """``optax.adam(lr)`` (β 0.9/0.999, eps 1e-8, optax's bias correction)
+    over flat buffers, in three forms, as ``salun/core/masked_opt.py:
+    188-215`` builds them:
+
+    - no ``mask``: plain Adam;
+    - ``mask`` alone: ``optax.chain(mask_grads(mask), adam)``;
+    - ``mask`` and ``theta0``: ``masked(adam, mask, theta0)``
+      (``:66-105``): grads × mask, the Adam step, both moments × mask
+      after it, masked-out weights written to θ₀ exactly (JAX adds
+      ``θ₀ − p`` to p, within one rounding of θ₀).
+
+    Each fp32 operation is optax's, in its order; the bias corrections
+    ``1 − βᵗ`` are fp32 on the host. ``mask`` and ``theta0`` are flat
+    tensors in the order of ``flat``.
+    """
+
+    B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
+
+    def __init__(self, flat: FlatParams, learning_rate, *, mask=None,
+                 theta0=None):
+        self.flat = flat
+        self.sched = (learning_rate if callable(learning_rate)
+                      else (lambda step, v=learning_rate: v))
+        self.b1, self.b2 = np.float32(self.B1), np.float32(self.B2)
+        # optax folds 1 − β in double, then rounds it to fp32
+        self.c1, self.c2 = np.float32(1 - self.B1), np.float32(1 - self.B2)
+        self.eps = np.float32(self.EPS)
+        n, device = flat.flat.numel(), flat.flat.device
+        self.mu = torch.zeros_like(flat.flat)
+        self.nu = torch.zeros_like(flat.flat)
+        self.count = 0
+        self.mask = self.theta0 = None
+        if mask is not None:
+            if mask.numel() != n:
+                raise ValueError("mask must cover every parameter")
+            self.mask = mask.reshape(-1).to(device=device,
+                                            dtype=torch.float32).clone()
+            if theta0 is not None:
+                if theta0.numel() != n:
+                    raise ValueError("theta0 must cover every parameter")
+                self.theta0 = theta0.reshape(-1).to(
+                    device=device, dtype=torch.float32).clone()
+
+    def zero_grad(self) -> None:
+        self.flat.zero_grad()
+
+    @torch.no_grad()
+    def step(self) -> None:
+        self.flat.check_grads()
+        g = self.flat.grad
+        if self.mask is not None:
+            g = g * self.mask
+        lr = np.float32(-self.sched(self.count))
+        self.mu.copy_(g * self.c1 + self.mu * self.b1)
+        self.nu.copy_((g * g) * self.c2 + self.nu * self.b2)
+        self.count += 1
+        t = np.float32(self.count)
+        bc1 = float(np.float32(1) - self.b1 ** t)
+        bc2 = float(np.float32(1) - self.b2 ** t)
+        u = (self.mu / bc1) / (torch.sqrt(self.nu / bc2) + self.eps)
+        p = self.flat.flat
+        if self.theta0 is None:
+            p.copy_(p + u * lr)
+            return
+        keep = self.mask > 0
+        p.copy_(torch.where(keep, p + u * lr, self.theta0))
+        self.mu.mul_(self.mask)
+        self.nu.mul_(self.mask)
+
+
+def build_optimizer(flat: FlatParams, learning_rate, momentum: float = 0.9,
+                    weight_decay: float = 5e-4, mask=None, theta0=None,
+                    kind: str = "sgd"):
+    """The optimizer factory (``salun/core/masked_opt.py:188-215``) over
+    ``flat``. ``mask`` and ``theta0`` → the full SalUn masked optimizer
+    (:class:`MaskedSGD` on K1, or masked :class:`Adam`); ``mask`` alone →
+    grads masked only (:class:`GradMaskSGD`, or :class:`Adam` on masked
+    grads); no mask → :class:`SGD` or :class:`Adam`."""
+    if kind == "sgd":
+        if mask is None:
+            return SGD(flat, learning_rate, momentum, weight_decay)
+        if theta0 is None:
+            return GradMaskSGD(flat, learning_rate, momentum, weight_decay,
+                               mask=mask)
+        return MaskedSGD(flat, learning_rate, momentum, weight_decay,
+                         mask=mask, theta0=theta0)
+    if kind == "adam":
+        return Adam(flat, learning_rate, mask=mask,
+                    theta0=None if mask is None else theta0)
+    raise ValueError(f"unknown optimizer kind {kind!r}")

@@ -16,8 +16,7 @@ from typing import Optional
 
 import torch
 
-from salun_torch.core.masked_opt import (SGD, FlatParams, GradMaskSGD,
-                                         MaskedSGD)
+from salun_torch.core.masked_opt import FlatParams, build_optimizer
 from salun_torch.core.train import cosine_warmup_lr, multistep_lr
 
 
@@ -89,14 +88,12 @@ def make_unlearn_optimizer(cfg: UnlearnConfig, model: torch.nn.Module,
         milestones = [int(x) for x in str(cfg.decreasing_lr).split(",") if x]
         sched = multistep_lr(cfg.unlearn_lr, milestones, steps_per_epoch)
     flat = FlatParams(model.parameters())
-    if mask is None:
-        return SGD(flat, sched, cfg.momentum, cfg.weight_decay)
-    flat_mask = flat.flatten(mask_tensors(model, mask))
-    if theta0 is None:
-        return GradMaskSGD(flat, sched, cfg.momentum, cfg.weight_decay,
-                           mask=flat_mask)
-    return MaskedSGD(flat, sched, cfg.momentum, cfg.weight_decay,
-                     mask=flat_mask, theta0=flat.flatten(theta0))
+    return build_optimizer(
+        flat, sched, cfg.momentum, cfg.weight_decay,
+        mask=None if mask is None else flat.flatten(mask_tensors(model,
+                                                                 mask)),
+        theta0=None if theta0 is None or mask is None
+        else flat.flatten(theta0))
 
 
 def reset_optimizer(opt) -> None:

@@ -4,8 +4,9 @@ Every dataset is a pair of numpy arrays ``(data uint8 NHWC, targets int64)``,
 as in the JAX package; batches become NCHW torch tensors on the device in
 ``salun_torch.data.loader``. Readers parse the standard on-disk formats:
 CIFAR-10/100 python-pickle batches, SVHN ``.mat`` files (scipy), the
-extracted TinyImageNet tree (PIL), plus the deterministic synthetic
-stand-in. ImageNet waits for a later slice.
+extracted TinyImageNet tree (PIL), ImageNet from a local HF
+``save_to_disk`` folder (``salun_torch.data.imagenet``), plus the
+deterministic synthetic stand-in.
 """
 
 from __future__ import annotations
@@ -149,16 +150,35 @@ def synthetic(n: int = 512, num_classes: int = 10, image_size: int = 32,
     return ArrayDataset(data, ys.astype(np.int64), num_classes, "synthetic")
 
 
+def imagenet(data_dir: str, train: bool = True) -> ArrayDataset:
+    """ImageNet-1k from a local HF ``DatasetDict`` folder
+    (``datasets.save_to_disk``; reference Classification/imagenet.py:
+    135-166). It decodes the whole split into one array, so it serves
+    subsets and miniatures through the standard CLIs (``main_forget
+    --dataset imagenet``); a full-scale run streams through
+    :class:`~salun_torch.data.imagenet.ImageNetLoader`. The decode size is
+    ``SALUN_IMAGENET_SIZE`` (default 224, the reference's)."""
+    from .imagenet import ImageNetLoader
+
+    size = int(os.environ.get("SALUN_IMAGENET_SIZE", "224"))
+    loader = ImageNetLoader(data_dir, image_size=size)
+    try:
+        ds = loader.ds["train" if train else "validation"]
+        xs = np.stack([loader._resize(im) for im in ds["image"]])
+        ys = np.asarray(ds["label"], np.int64)
+    finally:
+        loader.close()
+    return ArrayDataset(xs, ys, 1000, "imagenet")
+
+
 REGISTRY = {"cifar10": cifar10, "cifar100": cifar100, "svhn": svhn,
-            "TinyImagenet": tiny_imagenet, "tiny_imagenet": tiny_imagenet}
-NOT_PORTED = ("imagenet",)
+            "TinyImagenet": tiny_imagenet, "tiny_imagenet": tiny_imagenet,
+            "imagenet": imagenet}
 
 
 def load(name: str, data_dir: str, train: bool = True) -> ArrayDataset:
     if name == "synthetic":
         return synthetic(n=2048 if train else 512, seed=0 if train else 1)
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"dataset {name!r} is not ported yet")
     if name not in REGISTRY:
         raise KeyError(f"unknown dataset {name!r}")
     return REGISTRY[name](data_dir, train=train)

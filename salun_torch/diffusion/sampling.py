@@ -1,13 +1,14 @@
-"""Diffusion samplers: DDIM (generalized) and ancestral DDPM steps
+"""Diffusion samplers: DDIM (generalized), ancestral DDPM steps and PLMS
 (counterpart of ``salun/diffusion/sampling.py``; reference
-DDPM/functions/denoising.py:10-131, same update equations).
+DDPM/functions/denoising.py:10-131 and SD/ldm/models/diffusion/plms.py,
+same update equations).
 
 Each chain is a Python loop over the (t_i, t_{i−1}) pairs; the per-step
 noise comes from a ``torch.Generator`` or is injected (``noise``: one
 tensor per step). CFG sampling runs one U-Net forward per step on the
 doubled batch (``cfg_eps``). SD's DDIM uses the ldm grid
 (:func:`ldm_uniform_timesteps`) and ᾱ₀ at the −1 boundary
-(``final_alpha_bar``); ``plms_steps`` waits (ROADMAP queue 1, item 4).
+(``final_alpha_bar``), and so does SD's PLMS (:func:`plms_steps`).
 """
 
 from __future__ import annotations
@@ -111,6 +112,53 @@ def ddpm_steps(eps_fn: Callable, x: torch.Tensor, seq: Sequence[int],
             xs.append(x)
             x0s.append(x0)
     return _chain_result(x, x0, xs, x0s, return_trajectory)
+
+
+def plms_steps(eps_fn: Callable, x: torch.Tensor, seq: Sequence[int],
+               schedule: DiffusionSchedule,
+               final_alpha_bar: Optional[float] = None):
+    """PLMS chain (SD/ldm/models/diffusion/plms.py:268-382): pseudo linear
+    multistep, deterministic (eta 0). The first step is a pseudo improved
+    Euler step (eps at t and at t_next, averaged: two U-Net forwards);
+    later steps combine the new eps with the last one to three by
+    Adams-Bashforth of order 2, 3 and 4. So S steps cost S + 1 calls of
+    ``eps_fn``. ``final_alpha_bar`` is ᾱ at the −1 boundary (ᾱ₀ for SD;
+    None keeps the schedule's 1.0). At one step the bootstrap evaluates
+    eps at t_next = −1, as the JAX chain does. Returns ``(x_final, last
+    x0 prediction)``."""
+    n = x.shape[0]
+
+    def alpha(t):
+        if t < 0 and final_alpha_bar is not None:
+            return torch.full((n, 1, 1, 1), float(final_alpha_bar),
+                              device=x.device)
+        return _alpha(schedule, n, t, x.device)
+
+    def x_prev_from(e, xt, at, a_prev):
+        pred_x0 = (xt - torch.sqrt(1.0 - at) * e) / torch.sqrt(at)
+        dir_xt = torch.sqrt(1.0 - a_prev) * e
+        return torch.sqrt(a_prev) * pred_x0 + dir_xt, pred_x0
+
+    hist = []  # the last eps values, newest first
+    pred_x0 = None
+    for t, t_next in _seq_pairs(seq):
+        at, a_prev = alpha(t), alpha(t_next)
+        e_t = eps_fn(x, torch.full((n,), float(t), device=x.device))
+        if not hist:  # plms.py:363-367
+            x_boot, _ = x_prev_from(e_t, x, at, a_prev)
+            e_next = eps_fn(x_boot, torch.full((n,), float(t_next),
+                                               device=x.device))
+            e_prime = (e_t + e_next) / 2.0
+        elif len(hist) == 1:  # plms.py:368-379
+            e_prime = (3 * e_t - hist[0]) / 2.0
+        elif len(hist) == 2:
+            e_prime = (23 * e_t - 16 * hist[0] + 5 * hist[1]) / 12.0
+        else:
+            e_prime = (55 * e_t - 59 * hist[0] + 37 * hist[1]
+                       - 9 * hist[2]) / 24.0
+        x, pred_x0 = x_prev_from(e_prime, x, at, a_prev)
+        hist = [e_t] + hist[:2]
+    return x, pred_x0
 
 
 def timestep_sequence(num_timesteps: int, timesteps: Optional[int] = None,

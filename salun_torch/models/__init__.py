@@ -25,17 +25,20 @@ model_dict = {
 
 
 def create_model(arch: str, num_classes: int, imagenet: bool = False, *,
-                 seed: int = 0, device="cpu") -> torch.nn.Module:
+                 seed: int = 0, device="cpu", **norm) -> torch.nn.Module:
     """Build a model by registry name, with a seeded init, on ``device``.
     ``imagenet`` picks the stem of resnet18 and resnet50, as in
-    ``salun.models.create_model``; resnet34 always has the ImageNet one."""
+    ``salun.models.create_model``; resnet34 always has the ImageNet one.
+    ``norm`` (``mean``, ``std``) sets resnet50's input normalisation;
+    the other architectures take none and raise."""
     if arch not in model_dict:
         raise KeyError(f"unknown arch {arch!r}; available: {sorted(model_dict)}")
     gen = torch.Generator().manual_seed(int(seed))
     if arch in ("resnet18", "resnet50"):
-        model = model_dict[arch](num_classes, imagenet=imagenet, generator=gen)
+        model = model_dict[arch](num_classes, imagenet=imagenet, generator=gen,
+                                 **norm)
     else:
-        model = model_dict[arch](num_classes, generator=gen)
+        model = model_dict[arch](num_classes, generator=gen, **norm)
     return model.to(device)
 
 

@@ -139,5 +139,9 @@ def resnet34(num_classes: int = 10, imagenet: bool = True,
 
 
 def resnet50(num_classes: int = 10, imagenet: bool = False,
-             generator: torch.Generator | None = None) -> ResNet:
-    return _build((3, 4, 6, 3), Bottleneck, num_classes, imagenet, generator)
+             generator: torch.Generator | None = None, mean=CIFAR_MEAN,
+             std=CIFAR_STD) -> ResNet:
+    """ResNet-50; ``mean``/``std`` are the built-in normalisation's (the
+    ImageNet ones for ``sd_eval imageclassify``)."""
+    return _build((3, 4, 6, 3), Bottleneck, num_classes, imagenet, generator,
+                  mean=mean, std=std)

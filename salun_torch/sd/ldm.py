@@ -5,8 +5,8 @@ The used subset of SD/ldm/models/diffusion/ddpm.py: ``register_schedule``
 (ldm "linear" = √-space linspace), ``get_input`` (VAE encode × 0.18215 and
 CLIP encode, ddpm.py:913-973), ``q_sample``, ``apply_model``,
 ``p_losses``/``shared_step`` (ddpm.py:1093-1096, 1286-1319) and its form
-on cached posterior moments and contexts, DDIM sampling with
-classifier-free guidance (ldm/models/diffusion/ddim.py,
+on cached posterior moments and contexts, DDIM and PLMS sampling with
+classifier-free guidance (ldm/models/diffusion/ddim.py, plms.py,
 SD/eval-scripts/generate-images.py) and ESD's partial chain that stops at
 a timestep (train-esd.py:240-291).
 
@@ -25,7 +25,7 @@ from typing import Optional
 import torch
 
 from salun_torch.diffusion.sampling import (generalized_steps,
-                                            ldm_uniform_timesteps)
+                                            ldm_uniform_timesteps, plms_steps)
 from salun_torch.diffusion.schedules import DiffusionSchedule
 
 from .clip_text import CLIPTextConfig, CLIPTextModel, tokenize
@@ -175,25 +175,40 @@ class SDModules:
                       self.device)
 
     @torch.no_grad()
-    def sample(self, prompts, *, guidance: float = 7.5, steps: int = 50,
-               image_size: int = 64, eta: float = 0.0, generator=None,
-               initial_latents=None):
-        """Text → images in [0, 1], NCHW, by DDIM with CFG against the
-        empty prompt (ddim.py / generate-images.py): the ldm grid without
-        its last entry (the fork's DDIMSampler, ddim.py:224) and ᾱ₀ at the
-        boundary. PLMS waits (ROADMAP queue 1, item 4)."""
+    def sample(self, prompts, *, negative_prompts=None, guidance: float = 7.5,
+               steps: int = 50, image_size: int = 64, eta: float = 0.0,
+               return_latents: bool = False, sampler: str = "ddim",
+               generator=None, initial_latents=None):
+        """Text → images in [0, 1], NCHW, by DDIM or PLMS with CFG against
+        ``negative_prompts`` (the empty prompt by default; ddim.py /
+        plms.py / generate-images.py), ᾱ₀ at the boundary. DDIM walks the
+        ldm grid without its last entry (the fork's DDIMSampler,
+        ddim.py:224), PLMS the whole grid (plms.py:190-216). With
+        ``return_latents`` the final latents, undecoded."""
+        if sampler not in ("ddim", "plms"):
+            raise ValueError(f"unknown sampler {sampler!r}")
         n = len(prompts)
         max_len = self.clip.cfg.max_length
         ctx_c = self.encode_text(tokenize(prompts, max_len))
-        ctx_u = self.encode_text(tokenize([""] * n, max_len))
-        seq = ldm_uniform_timesteps(self.schedule.num_timesteps, steps)[:-1]
+        ctx_u = self.encode_text(tokenize(negative_prompts or [""] * n,
+                                          max_len))
+        seq = ldm_uniform_timesteps(self.schedule.num_timesteps, steps)
+        if sampler == "ddim":
+            seq = seq[:-1]
+        final_ab = float(self.schedule.alphas_cumprod[0])
         z = (self.initial_latents(n, image_size, generator)
              if initial_latents is None
              else initial_latents.to(self.device, torch.float32))
-        z, _ = generalized_steps(
-            self.cfg_eps_fn(ctx_c, ctx_u, guidance), z, seq, self.schedule,
-            eta=eta, generator=generator,
-            final_alpha_bar=float(self.schedule.alphas_cumprod[0]))
+        eps_fn = self.cfg_eps_fn(ctx_c, ctx_u, guidance)
+        if sampler == "plms":
+            z, _ = plms_steps(eps_fn, z, seq, self.schedule,
+                              final_alpha_bar=final_ab)
+        else:
+            z, _ = generalized_steps(eps_fn, z, seq, self.schedule, eta=eta,
+                                     generator=generator,
+                                     final_alpha_bar=final_ab)
+        if return_latents:
+            return z
         img = self.decode_latent(z)
         return torch.clamp((img + 1.0) / 2.0, 0.0, 1.0)
 
