@@ -200,10 +200,13 @@ Phases, each of which fails the script (exit code 1) when it fails:
    call's launches are also checked in full); images finite in [0, 1];
    the seconds of both printed. A 4-step PLMS chain through K2/K4 against
    the same chain with their plain versions in their place (TF32 off,
-   cuDNN deterministic): latents within 1e-3 of max(1, max|plain|).
+   cuDNN deterministic; the plain chain must launch no kernel): latents
+   within 1e-5 of max(1, max|plain|).
    ``sd_eval imageclassify`` over the 4 PNGs with the prompts CSV and a
    seeded torchvision-format ResNet-50 ``.pth``, on the card and on the
-   CPU: the merged CSV's columns and rows, top-1 equal (images/s printed);
+   CPU: the merged CSV's columns and rows, top-1 equal; then its rate
+   over 512 PNGs (those 4 shifted and mirrored by a seed) at the default
+   batch 16, the call's and the network's images/s printed;
    ``compute_fid`` between two folders of 32 synthetic PNGs (finite) and
    of one against itself (≤ 1e-6 x max(1, tr Σ)); ``nudenet`` stops with
    its instructions (no package there). The diffusers export of
@@ -361,8 +364,12 @@ SD_CACHE_TOL = 1e-4  # relative, cached against uncached losses (TF32 on)
 # nudenet), the diffusers export; then masked Adam, spack and
 # device_prefetch on phase 4's ResNet-18, mask and CIFAR-shaped arrays
 PLMS_CHECK_STEPS = 4
-PLMS_TOL = 1e-3  # × max(1, max|plain|): the latents after PLMS_CHECK_STEPS
+# × max(1, max|plain|): the latents after PLMS_CHECK_STEPS; three whole
+# runs on an H100 read 4.338e-7 each (of max|plain| 19.784), and a K2
+# without its 3xTF32 split (~1e-3 relative a product) would exceed it
+PLMS_TOL = 1e-5
 FID_IMAGES = 32  # synthetic PNGs in each compute_fid folder
+CLASSIFY_IMAGES = 512  # PNGs imageclassify's rate is timed over
 ADAM_STEPS, ADAM_LR = 20, 1e-4
 SPACK_BATCHES = 64  # random gathers of BATCH records timed per reader
 PREFETCH_STEPS = 24  # ResNet-18 SGD steps timed per transfer
@@ -2877,12 +2884,17 @@ def plms_vs_ddim(device, ckpt: Path, cfg, rows) -> tuple:
         fast = chain()
         torch.cuda.synchronize()
         check = {k: f.launches for k, f in kernels.items()}
+        for f in kernels.values():
+            f.launches = 0
         restore = _plain_sd_kernels()
         try:
             plain = chain()
             torch.cuda.synchronize()
         finally:
             restore()
+        leaked = {k: f.launches for k, f in kernels.items() if f.launches}
+        if leaked:
+            fail(f"the plain PLMS chain still launched kernels: {leaked}")
     finally:
         (torch.backends.cudnn.deterministic,
          torch.backends.cudnn.benchmark) = was
@@ -2974,11 +2986,41 @@ def sd_eval_checks(device, work: Path, rows, images) -> None:
     log(f"sd_eval imageclassify ({n_img} PNGs, ResNet-50 at 224, seeded "
         f".pth, prompts CSV): {len(card) - 1} rows, columns as the JAX "
         f"CLI's, top-1 {top1} equal to the CPU run's and to a second card "
-        f"call's; on the card (batch 4, TF32 off) "
-        f"{cold['images'] / cold['seconds']:.1f} images/s in a first call "
-        f"({cold['seconds']:.4f} s: cuDNN's algorithm choice included), "
-        f"{warm['images'] / warm['seconds']:.1f} in a second "
-        f"({warm['seconds']:.4f} s)")
+        f"call's; the network's seconds for one batch of 4 on the card "
+        f"(TF32 off): {cold['seconds']:.4f} in a first call (cuDNN's "
+        f"algorithm choice included), {warm['seconds']:.4f} in a second")
+
+    # the rate: a folder of CLASSIFY_IMAGES at the CLI's default batch
+    # size, the images the four above shifted and mirrored by a seed
+    many = work / "classify_rate"
+    many.mkdir()
+    rng = np.random.default_rng(31)
+    bases = [images[k][j] for j in range(len(rows)) for k in images]
+    for i in range(CLASSIFY_IMAGES):
+        shift = tuple(rng.integers(0, SD_IMAGE, 2))
+        img = np.roll(bases[i % len(bases)], shift, axis=(0, 1))
+        write_png(str(many / f"{i}_0.png"),
+                  img[:, ::-1] if rng.random() < 0.5 else img)
+    t0 = time.perf_counter()
+    rate = sd_eval.main(["imageclassify", "--folder_path", str(many),
+                         "--save_path", str(work / "classify_rate.csv"),
+                         "--classifier_weights", str(weights), "--device",
+                         str(device)])
+    wall = time.perf_counter() - t0
+    with open(work / "classify_rate.csv", newline="") as f:
+        table = list(csv_mod.reader(f))
+    col = table[0].index("index_top1") if table else -1
+    if (rate["images"] != CLASSIFY_IMAGES or len(table) != CLASSIFY_IMAGES + 1
+            or col < 0 or not all(0 <= int(r[col]) < 1000
+                                  for r in table[1:])):
+        fail(f"imageclassify over {CLASSIFY_IMAGES} PNGs: {rate['images']} "
+             f"images, {len(table) - 1} rows")
+    log(f"sd_eval imageclassify rate ({CLASSIFY_IMAGES} PNGs of "
+        f"{SD_IMAGE}x{SD_IMAGE}, the default batch 16, per-image CSV, one "
+        f"call): {CLASSIFY_IMAGES / wall:.1f} images/s for the whole call "
+        f"({wall:.3f} s: decode, network, CSV), the network "
+        f"{rate['images'] / rate['seconds']:.1f} images/s "
+        f"({rate['seconds']:.4f} s, its first batch of 16 included)")
 
     for name, seed in (("fid_a", 21), ("fid_b", 22)):
         write_png_folder(work / name, FID_IMAGES, seed)
@@ -3295,7 +3337,8 @@ def imagenet_path(device) -> dict:
     log(f"ImageNet ({IMAGENET_TRAIN} + {IMAGENET_VAL} seeded images of "
         f"{IMAGENET_CLASSES} classes, save_to_disk): imagenet() decoded the "
         f"validation split at 224 in {t_decode:.3f} s "
-        f"({IMAGENET_VAL / t_decode:.1f} images/s, host); ImageNetLoader's "
+        f"({IMAGENET_VAL / t_decode:.1f} images/s on the host, indicative "
+        f"only: {IMAGENET_VAL} noise images); ImageNetLoader's "
         f"batches through device_prefetch equal it bitwise; main_forget "
         f"--dataset imagenet --imagenet_arch (ResNet-18, FT 1 epoch, bs "
         f"{IMAGENET_BS}, {IMAGENET_FORGET} forget): UA {results['UA']:.2f} "

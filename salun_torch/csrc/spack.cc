@@ -85,14 +85,33 @@ void *spack_open(const char *path) {
     ::close(fd);
     return nullptr;
   }
+  // the header, the index and every record must lie inside the file: a
+  // truncated or corrupt file is refused here, so that no later read
+  // leaves the mapping
+  const uint64_t size = static_cast<uint64_t>(st.st_size);
+  uint64_t count, index_offset;
+  std::memcpy(&count, b + 4, 8);
+  std::memcpy(&index_offset, b + 12, 8);
+  bool ok = index_offset >= 20 && index_offset <= size &&
+            count <= (size - index_offset) / sizeof(IndexEntry);
+  const IndexEntry *index =
+      ok ? reinterpret_cast<const IndexEntry *>(b + index_offset) : nullptr;
+  for (uint64_t i = 0; ok && i < count; ++i) {
+    IndexEntry e;
+    std::memcpy(&e, index + i, sizeof(e));
+    ok = e.offset <= size && e.size <= size - e.offset;
+  }
+  if (!ok) {
+    munmap(base, st.st_size);
+    ::close(fd);
+    return nullptr;
+  }
   auto *p = new Pack();
   p->fd = fd;
   p->base = b;
   p->file_size = st.st_size;
-  std::memcpy(&p->count, b + 4, 8);
-  uint64_t index_offset;
-  std::memcpy(&index_offset, b + 12, 8);
-  p->index = reinterpret_cast<const IndexEntry *>(b + index_offset);
+  p->count = count;
+  p->index = index;
   // advise the kernel we'll read randomly
   madvise(base, st.st_size, MADV_RANDOM);
   return p;

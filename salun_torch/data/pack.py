@@ -123,9 +123,17 @@ class SpackReader:
                 raise ValueError(f"{path} is not a spack file")
             self._count, index_offset = struct.unpack(
                 "<QQ", self._mm[4:20].tobytes())
+            size = len(self._mm)
+            if not (20 <= index_offset <= size and self._count
+                    <= (size - index_offset) // _INDEX.itemsize):
+                raise ValueError(f"{path} is truncated or corrupt")
             self._index = np.frombuffer(
                 self._mm[index_offset:index_offset + 24 * self._count],
                 dtype=_INDEX)
+            off, n = self._index["offset"], self._index["size"]
+            if bool(((off > size) | (n > size - np.minimum(off, size))
+                     ).any()):
+                raise ValueError(f"{path} is truncated or corrupt")
 
     def __len__(self) -> int:
         return self._count

@@ -5,7 +5,8 @@ pipeline and ImageNet.
   through the port's native reader (its own ``csrc/spack.cc``, built with
   g++ at first use) and its numpy reader: records, labels and gathers
   bitwise; ``pack_folder`` writes the same bytes as JAX's; a failed build
-  raises instead of switching readers; out-of-range indices raise.
+  raises instead of switching readers; out-of-range indices raise; a
+  truncated or corrupt file is refused when it is opened, by both readers.
 - ``prefetch``: the same items in the same order as JAX's, the producer's
   exception re-raised, and an abandoned consumer stops the producer
   thread (the JAX oracle is ``tests/test_aux.py:81``); ``parallel_decode``
@@ -113,6 +114,31 @@ def test_spack_build_failure_raises(tmp_path, monkeypatch, arrays):
     (tmp_path / "bad.spack").write_bytes(b"NOPE" + bytes(32))
     with pytest.raises(ValueError):
         pack.SpackReader(str(tmp_path / "bad.spack"), native=False)
+
+
+def _corrupt(raw: bytes, how: str) -> bytes:
+    count, index_offset = np.frombuffer(raw[4:20], "<u8")
+    if how == "truncated":  # cut in the middle of the index
+        return raw[:int(index_offset) + 24 * int(count) // 2]
+    if how == "count":  # more records than the index holds
+        return raw[:4] + np.uint64(count + 1).tobytes() + raw[12:]
+    if how == "index_offset":  # the index past the end of the file
+        return raw[:12] + np.uint64(len(raw) + 8).tobytes() + raw[20:]
+    entry = int(index_offset) + 24 * 3  # record 3 runs past the end
+    return raw[:entry + 8] + np.uint64(len(raw)).tobytes() + raw[entry + 16:]
+
+
+@pytest.mark.parametrize("how", ["truncated", "count", "index_offset",
+                                 "record"])
+@pytest.mark.parametrize("native", [True, False])
+def test_spack_rejects_a_corrupt_file(tmp_path, arrays, how, native):
+    path = tmp_path / "x.spack"
+    pack.pack_arrays(str(path), *arrays)
+    good = path.read_bytes()
+    pack.SpackReader(str(path), native=native).close()
+    path.write_bytes(_corrupt(good, how))
+    with pytest.raises(ValueError):
+        pack.SpackReader(str(path), native=native)
 
 
 def test_spack_library_lands_in_the_build_dir():
