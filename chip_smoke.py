@@ -225,7 +225,31 @@ Phases, each of which fails the script (exit code 1) when it fails:
    equal ``imagenet()``'s arrays bitwise, then ``main_forget --dataset
    imagenet --imagenet_arch`` (ResNet-18, FT, 1 epoch, bs 64): metrics
    finite, K1 never launched.
-7. A ``{"kernels": [...]}`` line (launches per path and in all, PLMS's
+7. Data parallel (``--dp 2``), two ranks started by ``torchrun
+   --nproc_per_node 2`` sharing the one card over gloo (NCCL refuses two
+   ranks on one device; the NCCL route needs a machine with two cards),
+   each rank this script in ``--dp-child`` mode around the CLI's ``main``
+   (its kernel counts set to 0 just before and read just after), TF32 on:
+   7a after phase 4, ``generate_mask`` and ``main_random --unlearn RL``
+   with phase 4's argv (ResNet-18, global bs 256, 1 epoch) against phase
+   4's files; 7b after phase 5, ``ddpm_train`` mask generation and 4
+   ``rl`` steps (bs 128) and ``ddpm_sample`` (phase 5's call) against
+   phase 5's mask and samples and a 4-step single-process run; 7c inside
+   phase 6, ``sd_train random_label`` at 512x512, global batch 2, 2 steps
+   (against a single-process run) and ``sd_generate_images`` (phase 6's
+   rows) against phase 6's images. Gates, stated for TF32 (``DP_*``):
+   masks agree on ≥ 99% of entries and stay exact-k; RL (chaotic from
+   a seeded ResNet-18) within its own update of the single-process run's
+   weights (L2) and 5 points of its accuracies, masked-out weights at θ₀
+   bitwise; Adam's runs (DDPM, SD) within lr/10 but for 1% of the
+   weights and within 2·steps·lr;
+   PNGs within 1 level on average and 32 at most; both ranks'
+   parameters bitwise equal (the CLIs' digests); each rank's K1/K2/K3a/K3b/K4/K4b launches what the path
+   implies at half the batch; gloo on both ranks. Printed: each call's
+   ms/step beside the single-process one, the all-reduce's ms a step,
+   each rank's peak memory. K2/K3a/K3b are held against plain at a
+   rank's DDPM shape [64, 256, 256, 256] in phase 3.
+8. A ``{"kernels": [...]}`` line (launches per path and in all, PLMS's
    as ``sd_plms``; K1's
    ResNet-18 row counts the ResNet-18 paths, its vgg16_bn and ResNet-50
    rows their RL paths, its boundary_expanding row that call; K3a's and
@@ -292,6 +316,34 @@ K3B_BITWISE = [(128, 256, 256, 256), (32, 4096, 4096, 40),
 # counted apart (the kernels' D = 512 instantiations)
 D512_ROWS = {"K3a": "K3a flash_attention_bwd_dq D=512",
              "K3b": "K3b flash_attention_bwd_dkv D=512"}
+
+# Phase 7, data parallel: two ranks under torchrun share the one card
+# over gloo. K2/K3a/K3b at a rank's half of the bs-128 DDPM step.
+ATTN_DP = [(64, 256, 256, 256)]
+DP_DDPM_ITERS, DP_SD_PER_CLASS, DP_SD_BS = 4, 4, 2
+DP_TIMEOUT = 300  # seconds, each torchrun launch
+# Bounds of a --dp 2 run against its single-process run, TF32 on in both
+# (the CLIs' setting): cuDNN may pick other convolution algorithms at half
+# the batch, which round in other places (TF32 keeps ~3 digits), and the
+# ranks' gradient sum is taken in another order.
+DP_MASK_AGREE = 0.99       # share of mask entries equal
+# RL from phase 4's seeded (untrained) ResNet-18 with random labels is
+# chaotic: on the CPU two single-process runs that differ only in their
+# thread count part by 43% of the distance the weights moved in 9 steps
+# (the --dp 2 run by 56%), so RL's weights are held loosely (the distance
+# between the runs' updates at most DP_RL_RATIO times the update) and its
+# accuracies, near chance, within DP_POINTS; the CPU tests hold a few
+# steps tightly
+DP_RL_RATIO = 1.0
+DP_POINTS = 5.0            # max |Δ| of UA/RA/TA/val accuracy, in points
+# Samples, in 8-bit levels: a TF32 chain of 50 DDIM steps at half the
+# batch moves a few pixels by a few levels (the first chip run read 7
+# against a first bound of 4); a sharding fault (another x_T, another
+# label) moves the whole image by tens of levels on average
+DP_PNG_MEAN, DP_PNG_MAX = 1.0, 32
+# DDPM and SD run Adam: each step moves a weight by about lr at most, so two
+# runs of n steps differ by 2·n·lr at most; beyond a tenth of lr counts
+DP_ADAM_SHARE = 1e-2       # max share of weights beyond lr / 10
 
 # DDPM chain: the reference config, cut in count and steps
 DDPM_CONFIG = ROOT / "configs" / "ddpm" / "cifar10_saliency_unlearn.yml"
@@ -612,7 +664,7 @@ def attention_vs_plain(device):
     shape_err = {}
     times = {}
     gen = torch.Generator(device=device).manual_seed(2)
-    for shape in ATTN_PATH + ATTN_RAGGED + ATTN_FIM:
+    for shape in ATTN_PATH + ATTN_RAGGED + ATTN_FIM + ATTN_DP:
         b, nq, nk, d = shape
         q, do = (torch.randn(b, nq, d, generator=gen, device=device)
                  for _ in range(2))
@@ -2552,11 +2604,14 @@ def sd_path(device, attn_rows) -> dict:
                               "enc": vae_k4["enc"], "dec": vae_k4["dec"]},
                 step_ms, row_ms, n_ddim)
     total = {k: sum(g[k] for g in got.values()) for k in names}
+    gc.collect()
+    torch.cuda.empty_cache()
+    dp = dp_sd(device, work, ckpt, mask_file, cfg, csv)
     rest = sd_rest_paths(device, work, ckpt, mask_file, cfg,
                          result["losses"])
     rest.update(sd_sample_eval_paths(device, work, ckpt, cfg, rows))
     shutil.rmtree(work, ignore_errors=True)
-    return {"sd": total, **rest}
+    return {"sd": total, **rest, **dp}
 
 
 def sd_rest_paths(device, work: Path, ckpt: Path, mask_file: Path, cfg,
@@ -3366,7 +3421,501 @@ def scale_paths(device) -> dict:
     return {"main_forget --dataset imagenet": launches}
 
 
+# ----------------------------------------------------------------- phase 7
+
+
+def _jsonable(x):
+    """``x`` with what JSON cannot hold (tensors, masks) left out."""
+    if isinstance(x, dict):
+        return {str(k): _jsonable(v) for k, v in x.items()
+                if _jsonable(v) is not None}
+    if isinstance(x, (list, tuple)):
+        items = [_jsonable(v) for v in x]
+        return None if any(v is None for v in items) else items
+    if isinstance(x, (bool, int, float, str)) or x is None:
+        return x
+    return None
+
+
+def dp_child(args: list) -> None:
+    """One rank of a phase-7 launch, ``torchrun --nproc_per_node 2
+    chip_smoke.py --dp-child <out> <module> <argv...>``: every kernel's
+    count is set to 0 just before ``<module>.main(argv)`` and read just
+    after, with the call's time, peak memory and backend and the time its
+    gradient all-reduces took, into ``<out>.rank<r>.json``. (One call a
+    launch: a process group destroyed at the end of a CLI's ``main`` is
+    not brought up again on torchrun's store in the same process.)"""
+    import importlib
+    import os
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from salun_torch.dist import context as dist_ctx
+    from salun_torch.dist import multihost
+
+    out, module, argv = args[0], args[1], args[2:]
+    cuda = torch.cuda.is_available()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    reduce = {"calls": 0, "ms": 0.0, "bytes": 0}
+    backend = {}
+    inner, init = dist_ctx.all_reduce_, multihost.initialize
+
+    def timed_all_reduce(tensors, *a, **kw):
+        tensors = list(tensors)
+        sync()
+        t0 = time.perf_counter()
+        inner(tensors, *a, **kw)
+        sync()
+        reduce["ms"] += 1e3 * (time.perf_counter() - t0)
+        reduce["calls"] += 1
+        reduce["bytes"] += sum(t.numel() * t.element_size() for t in tensors)
+
+    def init_and_note(device="cpu"):
+        backend["name"] = init(device)
+        return backend["name"]
+
+    dist_ctx.all_reduce_ = timed_all_reduce
+    multihost.initialize = init_and_note
+    kernels = _sd_kernels()
+    for f in kernels.values():
+        f.launches = 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = importlib.import_module(module).main(argv)
+    sync()
+    rank = int(os.environ["RANK"])
+    rec = {"rank": rank, "seconds": time.perf_counter() - t0,
+           "launches": {k: f.launches for k, f in kernels.items()},
+           "peak_bytes": torch.cuda.max_memory_allocated() if cuda else 0,
+           "backend": backend.get("name"), "all_reduce": reduce,
+           "result": _jsonable(result)}
+    Path(f"{out}.rank{rank}.json").write_text(json.dumps(rec))
+
+
+def dp_launch(what: str, calls: list) -> tuple:
+    """The CLI calls ``[(module, argv), ...]``, each with ``--dp 2`` on two
+    ranks (a torchrun launch of this script's ``--dp-child`` each), in
+    turn; fails unless each launch exits 0, both ranks wrote their record
+    on gloo, and both printed the same parameter digests (the training
+    CLIs' replica check). Returns (each call's two records, rank 0's
+    digests)."""
+    import os
+    import re
+
+    base = WORK / "dp" / "ranks"
+    base.mkdir(parents=True, exist_ok=True)
+    # two ranks on this host's 8 cores; gloo's pairs on the loopback device
+    env = dict(os.environ, OMP_NUM_THREADS="4")
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    records, walls, digests = [], [], []
+    for i, (module, argv) in enumerate(calls):
+        out = base / f"{what.replace(' ', '_')}.{i}"
+        for old in base.glob(f"{out.name}.rank*.json"):
+            old.unlink()
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "2", str(ROOT / "chip_smoke.py"),
+               "--dp-child", str(out), module, *argv, "--dp", "2"]
+        t0 = time.perf_counter()
+        try:
+            p = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                               text=True, timeout=DP_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            fail(f"{what} {module} --dp 2: no end within {DP_TIMEOUT} s")
+        walls.append(time.perf_counter() - t0)
+        text = p.stdout + p.stderr
+        out.with_suffix(".log").write_text(text)
+        if p.returncode != 0:
+            fail(f"{what} {module} --dp 2 exited {p.returncode}:\n"
+                 f"{text[-6000:]}")
+        pair = []
+        for r in (0, 1):
+            path = base / f"{out.name}.rank{r}.json"
+            if not path.exists():
+                fail(f"{what} {module} --dp 2: rank {r} wrote no record")
+            pair.append(json.loads(path.read_text()))
+            if pair[-1]["backend"] != "gloo":
+                fail(f"{what} --dp 2: rank {r} on {pair[-1]['backend']}, "
+                     f"want gloo (two ranks share one card)")
+        records.append(pair)
+        by_rank = {"0": [], "1": []}
+        for r, d in re.findall(r"rank (\d): [^\n]*?digest ([0-9a-f]{16})",
+                               text):
+            by_rank[r].append(d)
+        if by_rank["0"] != by_rank["1"]:
+            fail(f"{what} {module} --dp 2: the replicas differ: {by_rank}")
+        digests += by_rank["0"]
+    log(f"{what} --dp 2: {len(calls)} torchrun launches, "
+        f"{', '.join(f'{w:.1f}' for w in walls)} s wall")
+    return records, digests
+
+
+def _dp_launches(what: str, ranks: list, want: dict) -> dict:
+    """Fails unless each rank launched each kernel as often as ``want``
+    says; returns ``{"<what> rank r": launches}`` for the kernel table."""
+    for rec in ranks:
+        got = {k: rec["launches"][k] for k in want}
+        extra = {k: n for k, n in rec["launches"].items()
+                 if k not in want and n}
+        if got != want or extra:
+            fail(f"{what} --dp 2 rank {rec['rank']}: launches "
+                 f"{rec['launches']}, the path implies {want}")
+    log(f"{what} --dp 2: each rank's launches {want}, as the path implies "
+        f"at half the batch")
+    return {f"dp {what} rank {rec['rank']}": rec["launches"]
+            for rec in ranks}
+
+
+def _dp_report(what: str, ranks: list, steps: int, one_ms: float,
+               dp_ms: float) -> None:
+    red = ranks[0]["all_reduce"]
+    per_step = red["ms"] / max(steps, 1)
+    log(f"{what}: single process {one_ms:.3f} ms/step, --dp 2 {dp_ms:.3f} "
+        f"ms/step (two ranks on one card, gloo); the all-reduce "
+        f"{per_step:.3f} ms/step on rank 0 ({red['calls']} calls, "
+        f"{red['bytes'] / 2**20:.1f} MiB in all, {red['ms']:.1f} ms); peak "
+        f"memory rank 0 {ranks[0]['peak_bytes'] / 2**30:.3f} GiB, rank 1 "
+        f"{ranks[1]['peak_bytes'] / 2**30:.3f} GiB; the call "
+        f"{ranks[0]['seconds']:.1f} s")
+
+
+def mask_agreement(a: dict, b: dict) -> float:
+    n = sum(v.numel() for v in a.values())
+    same = sum(int((a[k].float() == b[k].float()).sum()) for k in a)
+    return same / n
+
+
+def drift(a: dict, b: dict, rtol: float, atol: float) -> tuple:
+    """(share of entries with |a − b| > atol + rtol·|a|, max |a − b|)."""
+    bad = total = 0
+    worst = 0.0
+    for k, x in a.items():
+        x, y = x.double(), b[k].double()
+        d = (x - y).abs()
+        bad += int((d > atol + rtol * x.abs()).sum())
+        total += x.numel()
+        worst = max(worst, float(d.max()) if d.numel() else 0.0)
+    return bad / max(total, 1), worst
+
+
+def dp_classification(device) -> dict:
+    """Phase 7a: ``generate_mask`` and ``main_random --unlearn RL`` (phase
+    4's argv, ResNet-18, bs 256, 1 epoch) at ``--dp 2``, held against
+    phase 4's single-process files."""
+    from salun_torch.ckpt import load_mask, load_state_dict
+
+    data_dir, out_dir = WORK / "data", WORK / "out"
+    model_path = WORK / "resnet18_seed0.pt"
+    dp_dir = WORK / "dp" / "cls"
+    shutil.rmtree(dp_dir, ignore_errors=True)
+    common = ["--dataset", "cifar10", "--data", str(data_dir),
+              "--arch", "resnet18", "--model_path", str(model_path),
+              "--save_dir", str(dp_dir), "--batch_size", str(BATCH),
+              "--num_indexes_to_replace", str(N_FORGET),
+              "--class_to_replace", "-1", "--device", str(device.type)]
+    rl_args = common + ["--unlearn", "RL",
+                        "--mask_path", str(out_dir / "with_0.5.pt"),
+                        "--unlearn_lr", str(LR),
+                        "--unlearn_epochs", str(EPOCHS)]
+    t0 = time.perf_counter()
+    (ranks, rl_ranks), digests = dp_launch("ResNet-18", [
+        ("salun_torch.cli.generate_mask", common),
+        ("salun_torch.cli.main_random", rl_args)])
+    by_path = _dp_launches("ResNet-18 generate_mask", ranks,
+                           dict.fromkeys(_sd_kernels(), 0))
+    one, two = (load_mask(str(d / "with_0.5.pt")) for d in (out_dir, dp_dir))
+    ones = int(sum(int(v.sum()) for v in two.values()))
+    n = sum(v.numel() for v in two.values())
+    agree = mask_agreement(one, two)
+    if ones != int(n * 0.5) or agree < DP_MASK_AGREE:
+        fail(f"ResNet-18 --dp 2 mask: {ones} ones of {n}, agreement "
+             f"{agree} with one process (bound {DP_MASK_AGREE})")
+    log(f"ResNet-18 generate_mask --dp 2: exactly {ones} of {n} ones; "
+        f"{agree:.6f} of the entries equal phase 4's single-process mask "
+        f"(bound {DP_MASK_AGREE}); the call {ranks[0]['seconds']:.1f} s")
+
+    ranks = rl_ranks
+    loaders, _, _ = unlearn_loaders(rl_args)
+    steps = EPOCHS * (len(loaders["forget"]) + len(loaders["retain"]))
+    kernels = dict.fromkeys(_sd_kernels(), 0)
+    kernels[K1_NAME] = steps
+    by_path.update(_dp_launches("ResNet-18 RL", ranks, kernels))
+    mask = load_mask(str(out_dir / "with_0.5.pt"))
+    check_pinned(mask, model_path, dp_dir / "RL_checkpoint.pt",
+                 "RL --dp 2")
+    with open(out_dir / "RL_eval_result.json") as f:
+        single = json.load(f)
+    res = ranks[0]["result"]
+    metrics = ("retain", "forget", "val", "test", "UA",
+               "SVC_MIA_forget_efficacy")
+    if any(ranks[1]["result"][k] != res[k] for k in metrics):
+        fail("RL --dp 2: the ranks returned other metrics")
+    check_metrics(res, "RL --dp 2")
+    for k in ("retain", "forget", "val", "test", "UA"):
+        if abs(res[k] - single[k]) > DP_POINTS:
+            fail(f"RL --dp 2 {k} {res[k]} against {single[k]} single")
+    theta0 = load_state_dict(str(model_path))
+    one_w, two_w = (load_state_dict(str(d / "RL_checkpoint.pt"))
+                    for d in (out_dir, dp_dir))
+    keys = [k for k in theta0 if not k.endswith(
+        ("running_mean", "running_var", "num_batches_tracked"))]
+    moved = sum(float((one_w[k].double() - theta0[k].double()).square()
+                      .sum()) for k in keys) ** 0.5
+    apart = sum(float((one_w[k].double() - two_w[k].double()).square()
+                      .sum()) for k in keys) ** 0.5
+    worst = max(float((one_w[k] - two_w[k]).abs().max()) for k in keys)
+    if not apart <= DP_RL_RATIO * moved:
+        fail(f"RL --dp 2 weights {apart} apart from the single-process "
+             f"run's, which moved {moved} (bound {DP_RL_RATIO}x)")
+    log(f"RL --dp 2 against phase 4's single-process RL: UA "
+        f"{res['UA']:.2f}/{single['UA']:.2f} RA {res['retain']:.2f}/"
+        f"{single['retain']:.2f} val {res['val']:.2f}/{single['val']:.2f} "
+        f"TA {res['test']:.2f}/{single['test']:.2f} (bound {DP_POINTS} "
+        f"points); the weights {apart:.4f} apart (L2), "
+        f"{apart / moved:.3f} of the single run's update {moved:.4f} (bound "
+        f"{DP_RL_RATIO}), max |Δ| {worst:.3e}; replica digests {digests}")
+    one_ms = 1e3 * single["seconds"]["unlearn"] / steps
+    dp_ms = 1e3 * res["seconds"]["unlearn"] / steps
+    _dp_report("ResNet-18 RL", ranks, steps, one_ms, dp_ms)
+    log(f"phase 7a (ResNet-18 --dp 2): {time.perf_counter() - t0:.3f} s")
+    return by_path
+
+
+def dp_ddpm(device) -> dict:
+    """Phase 7b: ``ddpm_train`` mask generation and 4 ``rl`` steps, then
+    ``ddpm_sample``, at ``--dp 2`` on phase 5's data, checkpoint and mask,
+    held against phase 5's single-process mask and samples and a 4-step
+    single-process run."""
+    import torch
+
+    from salun_torch.ckpt import load_ddpm_states, load_mask
+    from salun_torch.cli import ddpm_train
+    from salun_torch.cli.ddpm_config import load_config
+    from salun_torch.diffusion.sampling import timestep_sequence
+    from salun_torch.diffusion.unet import attention_sites
+
+    work = WORK / "ddpm"
+    dp_dir = WORK / "dp" / "ddpm"
+    shutil.rmtree(dp_dir, ignore_errors=True)
+    bundle = load_config(str(DDPM_CONFIG))
+    cfg = bundle.train
+    sites = attention_sites(bundle.unet)
+    common = ["--config", str(DDPM_CONFIG), "--data", str(work / "data"),
+              "--label_to_forget", "0", "--ckpt_folder", str(work / "base"),
+              "--device", str(device.type)]
+    rel = Path("mask") / "0" / "with_0.5.pt"
+    unlearn = common + ["--mode", "saliency_unlearn", "--method", "rl",
+                        "--mask_path", str(work / "mask" / rel),
+                        "--n_iters", str(DP_DDPM_ITERS)]
+    t0 = time.perf_counter()
+    single = ddpm_train.main(unlearn + ["--save_dir", str(dp_dir / "one")])
+    torch.cuda.synchronize()
+    (ranks, rl_ranks, sample_ranks), digests = dp_launch("DDPM", [
+        ("salun_torch.cli.ddpm_train",
+         common + ["--mode", "generate_mask",
+                   "--save_dir", str(dp_dir / "mask")]),
+        ("salun_torch.cli.ddpm_train",
+         unlearn + ["--save_dir", str(dp_dir / "two")]),
+        ("salun_torch.cli.ddpm_sample", [
+            "--config", str(DDPM_SAMPLE_CONFIG), "--mode", "sample_classes",
+            "--ckpt_folder", str(work / "unlearned"),
+            "--classes", ",".join(map(str, DDPM_CLASSES)),
+            "--n_samples_per_class", str(DDPM_SAMPLES),
+            "--batch", str(DDPM_SAMPLES), "--timesteps", str(DDPM_STEPS),
+            "--sample_type", "generalized", "--eta", "0",
+            "--save_dir", str(dp_dir / "samples"),
+            "--device", device.type])])
+    n_batches = -(-DDPM_PER_CLASS // cfg.batch_size)
+    k = list(_attention_kernels())
+    zero = dict.fromkeys(_sd_kernels(), 0)
+    by_path = _dp_launches("DDPM generate_mask", ranks, {
+        **zero, **dict.fromkeys(k, sites * n_batches)})
+    one = load_mask(str(work / "mask" / rel))
+    two = load_mask(str(dp_dir / "mask" / rel))
+    n = sum(v.numel() for v in two.values())
+    ones = int(sum(int(v.sum()) for v in two.values()))
+    agree = mask_agreement(one, two)
+    if ones != n // 2 or agree < DP_MASK_AGREE:
+        fail(f"DDPM --dp 2 mask: {ones} ones of {n}, agreement {agree} "
+             f"(bound {DP_MASK_AGREE})")
+    log(f"DDPM generate_mask --dp 2: exactly {ones} of {n} ones; {agree:.6f} "
+        f"of the entries equal phase 5's single-process mask (bound "
+        f"{DP_MASK_AGREE}); the call {ranks[0]['seconds']:.1f} s")
+
+    ranks = rl_ranks
+    it = DP_DDPM_ITERS
+    by_path.update(_dp_launches("DDPM rl", ranks, {
+        **zero, k[0]: 3 * sites * it, k[1]: 2 * sites * it,
+        k[2]: 2 * sites * it}))
+    theta0 = load_ddpm_states(str(work / "base" / "ckpts" / "ckpt.pth"))[0]
+    a = load_ddpm_states(str(dp_dir / "one" / "ckpts" / "ckpt.pth"))[0]
+    b = load_ddpm_states(str(dp_dir / "two" / "ckpts" / "ckpt.pth"))[0]
+    for name, m in one.items():
+        if not torch.equal(b[name][m == 0], theta0[name][m == 0]):
+            fail(f"DDPM rl --dp 2 {name}: a masked-out weight left θ₀")
+    lr = cfg.lr
+    share, worst = drift(a, b, 0.0, lr / 10)
+    if share > DP_ADAM_SHARE or worst > 2 * it * lr:
+        fail(f"DDPM rl --dp 2: {share} of the weights beyond lr/10 of the "
+             f"single-process run's, max |Δ| {worst} (bounds "
+             f"{DP_ADAM_SHARE}, {2 * it * lr})")
+    losses = ranks[0]["result"]["losses"]
+    log(f"DDPM rl --dp 2 ({it} steps, bs {cfg.batch_size}): masked-out "
+        f"weights θ₀ bitwise; weights beyond lr/10 of the single-process "
+        f"run's: {share:.3e} (bound {DP_ADAM_SHARE}), max |Δ| {worst:.3e} "
+        f"(bound {2 * it * lr:.1e}); losses {[round(x, 5) for x in losses]} "
+        f"against {[round(x, 5) for x in single['losses']]}; replica "
+        f"digests {digests}")
+    _dp_report("DDPM rl", ranks, it, single["ms_per_step"],
+               ranks[0]["result"]["ms_per_step"])
+
+    ranks = sample_ranks
+    n_steps = len(timestep_sequence(bundle.schedule.num_timesteps,
+                                    DDPM_STEPS))
+    by_path.update(_dp_launches("DDPM sample", ranks, {
+        **zero, k[0]: sites * n_steps * len(DDPM_CLASSES)}))
+    pngs = check_pngs("DDPM sample --dp 2", [
+        (work / "samples" / str(c) / f"{i}.png",
+         dp_dir / "samples" / str(c) / f"{i}.png")
+        for c in DDPM_CLASSES for i in range(DDPM_SAMPLES)])
+    log(f"DDPM sample --dp 2: {DDPM_SAMPLES * len(DDPM_CLASSES)} PNGs "
+        f"against phase 5's single-process ones: {pngs}; "
+        f"{ranks[0]['result']['seconds']:.3f} s (phase 5's call above)")
+    log(f"phase 7b (DDPM --dp 2): {time.perf_counter() - t0:.3f} s")
+    return by_path
+
+
+def png_diffs(pairs) -> dict:
+    """|Δ| of the 8-bit pixels of pairs of PNGs: mean, max and the share
+    above 1 level, over all of them."""
+    import numpy as np
+    from PIL import Image
+
+    d = []
+    for a, b in pairs:
+        x = np.asarray(Image.open(a), np.int16)
+        y = np.asarray(Image.open(b), np.int16)
+        if x.shape != y.shape:
+            fail(f"{a} and {b} differ in shape")
+        d.append(np.abs(x - y).ravel())
+    d = np.concatenate(d)
+    return {"mean": float(d.mean()), "max": int(d.max()),
+            "above_1": float((d > 1).mean())}
+
+
+def check_pngs(what: str, pairs) -> str:
+    """Fails unless the pixels of ``pairs`` are within DP_PNG_MEAN on
+    average and DP_PNG_MAX at most; returns a summary."""
+    d = png_diffs(pairs)
+    if d["mean"] > DP_PNG_MEAN or d["max"] > DP_PNG_MAX:
+        fail(f"{what}: pixels off by {d['mean']} on average, {d['max']} at "
+             f"most (bounds {DP_PNG_MEAN}, {DP_PNG_MAX})")
+    return (f"pixels within {d['mean']:.4f} levels on average (bound "
+            f"{DP_PNG_MEAN}), {d['max']} at most (bound {DP_PNG_MAX}), "
+            f"{100 * d['above_1']:.3f}% off by more than 1")
+
+
+def dp_sd(device, work: Path, ckpt: Path, mask_file: Path, cfg,
+          csv: Path) -> dict:
+    """Phase 7c: ``sd_train random_label`` at 512x512, global batch 2, 2
+    steps, and ``sd_generate_images`` (phase 6's rows and settings) at
+    ``--dp 2`` on phase 6's checkpoint, held against a single-process
+    random_label run and phase 6's images."""
+    import gc
+
+    import torch
+
+    from salun_torch.ckpt import load_compvis_state_dict, load_sd_mask
+    from salun_torch.cli import sd_train
+    from salun_torch.diffusion.sampling import ldm_uniform_timesteps
+    from salun_torch.sd.unet import kernel_sites
+
+    dp_dir = WORK / "dp" / "sd"
+    shutil.rmtree(dp_dir, ignore_errors=True)
+    for c in range(10):
+        write_png_folder(dp_dir / "data" / "imagenette2" / "train"
+                         / f"n{c:08d}", DP_SD_PER_CLASS, 50 + c)
+    rl = ["random_label", "--config", str(SD_CONFIG), "--ckpt_path",
+          str(ckpt), "--data", str(dp_dir / "data"), "--image_size",
+          str(SD_IMAGE), "--batch_size", str(DP_SD_BS), "--class_to_forget",
+          "0", "--mask_path", str(mask_file), "--epochs", "1", "--lr",
+          str(SD_LR), "--alpha", str(SD_ALPHA), "--train_method", "full",
+          "--remat", "--device", device.type]
+    t0 = time.perf_counter()
+    single = sd_train.main(rl + ["--save_dir", str(dp_dir / "one")])
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    (ranks, gen_ranks), digests = dp_launch("SD", [
+        ("salun_torch.cli.sd_train", rl + ["--save_dir", str(dp_dir / "two")]),
+        ("salun_torch.cli.sd_generate_images", [
+            "--prompts_path", str(csv), "--config", str(SD_CONFIG),
+            "--ckpt_path", str(work / "rl" / "compvis.ckpt"),
+            "--save_path", str(dp_dir / "images"), "--num_samples",
+            str(SD_SAMPLES), "--ddim_steps", str(SD_STEPS),
+            "--guidance_scale", str(SD_GUIDANCE), "--image_size",
+            str(SD_IMAGE), "--device", device.type])])
+    steps = DP_SD_PER_CLASS // DP_SD_BS
+    unet = kernel_sites(cfg.unet)
+    enc = 2 * len(cfg.vae.ch_mult) * cfg.vae.num_res_blocks + 5
+    dec = 2 * len(cfg.vae.ch_mult) * (cfg.vae.num_res_blocks + 1) + 5
+    names = list(_sd_kernels())
+    k2, k4, k2_re, k4_re = (unet["k2"], unet["k4"], unet["k2_remat"],
+                            unet["k4_remat"])
+    by_path = _dp_launches("SD random_label", ranks, dict(zip(names, (
+        0, steps * (3 + 3 * k2 + 2 * k2_re), steps * 2 * k2,
+        steps * 2 * k2, steps * (3 * enc + 3 * k4 + 2 * k4_re),
+        steps * 2 * k4))))
+    mask = load_sd_mask(str(mask_file), device)
+    check_sd_pinned(ckpt, dp_dir / "two" / "compvis.ckpt", mask,
+                    "random_label --dp 2", device)
+    del mask
+    prefix = "model.diffusion_model."
+    a, b = (load_compvis_state_dict(str(dp_dir / d / "compvis.ckpt"))
+            for d in ("one", "two"))
+    a = {k: v for k, v in a.items() if k.startswith(prefix)}
+    share, worst = drift(a, b, 0.0, SD_LR / 10)
+    del a, b
+    if share > DP_ADAM_SHARE or worst > 2 * steps * SD_LR:
+        fail(f"SD random_label --dp 2: {share} of the U-Net beyond lr/10 "
+             f"of the single-process run's, max |Δ| {worst} (bounds "
+             f"{DP_ADAM_SHARE}, {2 * steps * SD_LR})")
+    peak = sum(r["peak_bytes"] for r in ranks)
+    log(f"SD random_label --dp 2 ({steps} steps, global bs {DP_SD_BS}, "
+        f"{SD_IMAGE}x{SD_IMAGE}, remat): masked-out weights θ₀ bitwise; "
+        f"U-Net weights beyond lr/10 of the single-process run's: "
+        f"{share:.3e} (bound {DP_ADAM_SHARE}), max |Δ| {worst:.3e} (bound "
+        f"{2 * steps * SD_LR:.1e}); both ranks' peaks {peak / 2**30:.3f} "
+        f"GiB together ({peak / 1e9:.2f} GB of 80); replica digests "
+        f"{digests}")
+    _dp_report("SD random_label", ranks, steps, single["ms_per_step"],
+               ranks[0]["result"]["ms_per_step"])
+
+    ranks = gen_ranks
+    n_ddim = len(ldm_uniform_timesteps(cfg.timesteps, SD_STEPS)[:-1])
+    by_path.update(_dp_launches("SD generate_images", ranks, dict(zip(
+        names, (0, SD_ROWS * (n_ddim * k2 + 1), 0, 0,
+                SD_ROWS * (n_ddim * k4 + dec), 0)))))
+    files = sorted(p.name for p in (work / "images").iterdir())
+    pngs = check_pngs("SD generate_images --dp 2", [
+        (work / "images" / f, dp_dir / "images" / f) for f in files])
+    log(f"SD generate_images --dp 2: {len(files)} PNGs against phase 6's "
+        f"single-process ones: {pngs}; {ranks[0]['result']['seconds']:.3f} "
+        f"s (phase 6's call above)")
+    shutil.rmtree(dp_dir, ignore_errors=True)
+    log(f"phase 7c (SD --dp 2): {time.perf_counter() - t0:.3f} s")
+    return by_path
+
+
 def main() -> None:
+    if sys.argv[1:2] == ["--dp-child"]:
+        dp_child(sys.argv[2:])
+        return
     try:
         import torch
     except ImportError:
@@ -3404,12 +3953,14 @@ def main() -> None:
 
     # the main paths through the CLIs (TF32 on), each counted on its own
     by_path = {"classification": main_path(device, k1_ms[K1_NAME])}
+    by_path.update(dp_classification(device))
     by_path.update(methods_paths(device, k1_ms[K1_NAME]))
     by_path.update(train_resume_path(device))
     by_path.update(cifar100_arch_paths(device, k1_ms))
     kth_on_card(device)
     by_path.update(remaining_methods_paths(device, k1_ms))
     by_path["ddpm"] = ddpm_path(device, attn_ms)
+    by_path.update(dp_ddpm(device))
     by_path.update(ddpm_train_paths(device))
     ddpm_eval_path(device)
     by_path.update(stl10_path(device))

@@ -3,7 +3,8 @@
 
 The same flags as the JAX package (reference Classification/arg_parser.py:
 4-145), plus ``--device``: the port runs on ``cuda`` unless asked for the
-CPU, and raises when no card is present.
+CPU, and raises when no card is present. ``--dp N`` runs N processes
+started by ``torchrun --nproc_per_node N`` (``salun_torch.dist.context``).
 """
 
 from __future__ import annotations
@@ -30,8 +31,9 @@ def build_parser() -> argparse.ArgumentParser:
 
     # General
     p.add_argument("--dp", type=int, default=0,
-                   help="data-parallel device count; only 0/1 (one device) "
-                        "is ported yet")
+                   help="data-parallel process count: run under torchrun "
+                        "--nproc_per_node N with --dp N, one shard of each "
+                        "batch a rank; 0/1 runs one process")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (default cuda; cpu for "
                         "tests)")

@@ -12,7 +12,10 @@ one image per class as ``save_dir/trajectory.npz`` (``xs`` and
 ``x0_preds`` [steps, B, H, W, C] in [0,1], ``classes``). ``--classes``
 takes the ``x0`` exclusion syntax; ``--timesteps``, ``--sample_type
 generalized|ddpm_noisy``, ``--eta`` and ``--cond_scale`` as in JAX. PNGs
-are written with the standard library.
+are written with the standard library. ``--dp N`` under ``torchrun
+--nproc_per_node N`` runs each batch's chain on N ranks, one shard each;
+the samples come back to every rank and rank 0 writes the files of the
+single-process run.
 
 Usage:
   python -m salun_torch.cli.ddpm_sample \
@@ -37,8 +40,9 @@ from salun_torch.cli.ddpm_config import load_config
 from salun_torch.cli.ddpm_train import ckpt_path
 from salun_torch.diffusion import ConditionalUNet
 from salun_torch.diffusion.runner import DDPMRunner
-from salun_torch.utils.device import (make_generator, resolve_device,
-                                      seed_all, set_tf32)
+from salun_torch.dist import context as dist_ctx
+from salun_torch.utils.device import make_generator, seed_all, set_tf32
+
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="SalUn DDPM sampling (PyTorch)")
@@ -60,6 +64,14 @@ def parse_args(argv=None):
     p.add_argument("--eta", type=float, default=0.0)
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--use_ema", action="store_true")
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel process count for sampling (run "
+                        "under torchrun --nproc_per_node N): each batch's "
+                        "reverse chain shards over N ranks (the reference "
+                        "fans sample_fid over 2 GPUs via DataParallel, "
+                        "runners/diffusion.py:773-824). Batches are padded "
+                        "up to a multiple of dp; pick --batch divisible by "
+                        "dp to avoid waste.")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (default cuda; cpu for "
                         "tests)")
@@ -139,7 +151,10 @@ def _stats(tensors, n: int, t0: float, path: str) -> dict:
 
 def main(argv=None):
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    return dist_ctx.run(args.dp, args.device, lambda dev: _main(args, dev))
+
+
+def _main(args, device):
     set_tf32(True)
     os.makedirs(args.save_dir, exist_ok=True)
     seed_all(args.seed)
@@ -151,6 +166,7 @@ def main(argv=None):
     model.load_state_dict(ema_sd if args.use_ema and ema_sd is not None
                           else model_sd, strict=True)
     model = model.to(device)
+    dist_ctx.place_replicated(model)
     gen = make_generator(args.seed, device)
 
     classes = create_class_labels(args.classes, bundle.unet.n_classes)
@@ -161,15 +177,19 @@ def main(argv=None):
             sample_type=args.sample_type, timesteps=args.timesteps,
             eta=args.eta, generator=gen)
         out = os.path.join(args.save_dir, "trajectory.npz")
-        np.savez_compressed(out, xs=_nhwc(xs), x0_preds=_nhwc(x0s),
-                            classes=np.asarray(classes))
+        if dist_ctx.is_writer():
+            np.savez_compressed(out, xs=_nhwc(xs), x0_preds=_nhwc(x0s),
+                                classes=np.asarray(classes))
+        dist_ctx.barrier()
         return _stats([xs, x0s], len(classes), t0, out)
     if args.mode == "sample_visualization":
         imgs = runner.sample_visualization(model, cond_scale=args.cond_scale,
                                            timesteps=args.timesteps,
                                            generator=gen)
         out = os.path.join(args.save_dir, "grid.png")
-        save_grid(imgs, out, bundle.unet.n_classes)
+        if dist_ctx.is_writer():
+            save_grid(imgs, out, bundle.unet.n_classes)
+        dist_ctx.barrier()
         return _stats([imgs], len(imgs), t0, out)
 
     per_class = (1 if args.mode == "sample_one_class"
@@ -182,16 +202,21 @@ def main(argv=None):
         done = 0
         while done < per_class:
             n = min(args.batch, per_class - done)
+            # a --dp mesh shards the chain's batch: a ragged batch is padded
+            # up to a multiple of dp and the surplus dropped
+            n_run = -(-n // args.dp) * args.dp if args.dp > 1 else n
             imgs = runner.sample_classes(
-                model, classes=[c], n_per_class=n,
+                model, classes=[c], n_per_class=n_run,
                 cond_scale=args.cond_scale, sample_type=args.sample_type,
-                timesteps=args.timesteps, eta=args.eta, generator=gen)
-            save_images(imgs, out_dir, start=done)
+                timesteps=args.timesteps, eta=args.eta, generator=gen)[:n]
+            if dist_ctx.is_writer():
+                save_images(imgs, out_dir, start=done)
             stats["images"] += n
             stats["finite"] &= bool(torch.isfinite(imgs).all())
             stats["min"] = min(stats["min"], float(imgs.min()))
             stats["max"] = max(stats["max"], float(imgs.max()))
             done += n
+    dist_ctx.barrier()
     stats["seconds"] = time.perf_counter() - t0
     print(f"sampled {stats['images']} images of classes {classes} in "
           f"{stats['seconds']:.3f} s")

@@ -23,7 +23,9 @@ it, from a U-Net seeded with ``--seed``. The trained state goes to
 every ``snapshot_freq`` steps and at the end. ``--resume`` continues from
 that file: model, Adam state, step and EMA, with the data streams moved on
 by ``step`` batches. Step s draws from a generator seeded with (``--seed``,
-s), so a resumed run draws what a straight one does.
+s), so a resumed run draws what a straight one does. ``--dp N`` under
+``torchrun --nproc_per_node N`` shards each batch over N ranks
+(``salun_torch.dist.context``); rank 0 writes.
 
 Usage:
   python -m salun_torch.cli.ddpm_train --config configs/ddpm/cifar10_train.yml \
@@ -57,8 +59,8 @@ from salun_torch.data import ddpm_data
 from salun_torch.data.loader import BatchIterator
 from salun_torch.diffusion import ConditionalUNet
 from salun_torch.diffusion.runner import DDPMRunner, make_optimizer
-from salun_torch.utils.device import (make_generator, resolve_device,
-                                      seed_all, set_tf32)
+from salun_torch.dist import context as dist_ctx
+from salun_torch.utils.device import make_generator, seed_all, set_tf32
 
 
 def parse_args(argv=None):
@@ -78,6 +80,13 @@ def parse_args(argv=None):
     p.add_argument("--n_iters", type=int, default=None)
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--save_dir", type=str, default="results/ddpm")
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel process count (0/1 = one process; "
+                        "N: run under torchrun --nproc_per_node N). The "
+                        "product-path replacement for the reference's "
+                        "DataParallel wrap of the U-Net "
+                        "(DDPM/runners/diffusion.py:203,504,628): state "
+                        "replicates, batches shard, gradients all-reduce.")
     p.add_argument("--resume", action="store_true",
                    help="continue from save_dir/ckpts/ckpt.pth: model, "
                         "Adam state, step and EMA")
@@ -168,8 +177,11 @@ def main(argv=None):
         raise NotImplementedError(
             "train_esd is dispatched but unimplemented in the reference "
             "(DDPM/train.py:147-158); use mode=saliency_unlearn --method ga.")
+    return dist_ctx.run(args.dp, args.device, lambda dev: _main(args, dev))
+
+
+def _main(args, device):
     logging.basicConfig(level=logging.INFO)
-    device = resolve_device(args.device)
     set_tf32(True)
     os.makedirs(args.save_dir, exist_ok=True)
     seed_all(args.seed)
@@ -182,6 +194,7 @@ def main(argv=None):
     train_ds = ddpm_data.get_dataset(bundle.dataset, args.data, train=True,
                                      image_size=bundle.unet.image_size)
     model = load_unet(runner, args)
+    dist_ctx.place_replicated(model)
 
     if args.mode == "generate_mask":
         _, forget = ddpm_data.get_forget_dataset(train_ds,
@@ -193,9 +206,11 @@ def main(argv=None):
                                      generator=make_generator(args.seed,
                                                               device))
         for t, m in masks.items():
-            save_mask(os.path.join(args.save_dir, "mask",
-                                   str(args.label_to_forget),
-                                   f"with_{t}.pt"), m)
+            if dist_ctx.is_writer():
+                save_mask(os.path.join(args.save_dir, "mask",
+                                       str(args.label_to_forget),
+                                       f"with_{t}.pt"), m)
+        dist_ctx.barrier()
         _sync(device)
         print(f"mask generation seconds {time.perf_counter() - t0:.3f} "
               f"({len(loader)} batches of {cfg.batch_size})")
@@ -219,6 +234,7 @@ def main(argv=None):
         if step_fn.shadow is not None and ema_sd is not None:
             for name, s in step_fn.shadow.items():
                 s.copy_(ema_sd[name])
+        dist_ctx.place_replicated(model)
         for _ in range(start):  # the data streams where the run stopped
             for it in streams:
                 next(it)
@@ -244,8 +260,10 @@ def main(argv=None):
             _save(args, model, optimizer, step + 1, step_fn.shadow)
     _sync(device)
     t_end = time.perf_counter()
+    dist_ctx.check_replicas(model.state_dict().values(), "parameters")
     if cfg.n_iters % cfg.snapshot_freq != 0:
         _save(args, model, optimizer, cfg.n_iters, step_fn.shadow)
+    dist_ctx.barrier()
     seconds = {"first_step": (t_first or t_end) - t0,
                "later_steps": t_end - (t_first or t_end)}
     later = max(cfg.n_iters - start - 1, 0)
@@ -260,7 +278,9 @@ def main(argv=None):
 
 def _save(args, model, optimizer, step, shadow=None):
     """The reference's ``[model, optimizer, step, (ema)]`` list
-    (diffusion.py:252-265)."""
+    (diffusion.py:252-265), written by rank 0."""
+    if not dist_ctx.is_writer():
+        return
     save_ddpm_states(ckpt_path(args.save_dir), model.state_dict(),
                      optimizer.adam.state_dict(), step, shadow)
 

@@ -14,7 +14,9 @@ output) and writes ``{unlearn}_checkpoint.pt`` and
 With ``--resume`` and an existing ``{unlearn}_checkpoint.pt``, the
 unlearned model is loaded and the unlearning loop skipped; the evaluation
 is computed anew (main_random.py:122-126). ``main_forget`` is this CLI
-without the mask.
+without the mask. ``--dp N`` under ``torchrun --nproc_per_node N`` shards
+each batch over N ranks (``salun_torch.dist.context``); every rank returns
+the same results, and rank 0 writes.
 
 Usage: python -m salun_torch.cli.main_random --unlearn RL \
            --mask_path masks/with_0.5.pt --model_path model.pt \
@@ -37,9 +39,9 @@ from salun_torch.cli.setup import (build_unlearn_loaders, load_model,
 from salun_torch.core.methods import UnlearnConfig, get_unlearn_method
 from salun_torch.core.train import generator_source, validate
 from salun_torch.data.loader import BatchIterator
+from salun_torch.dist import context as dist_ctx
 from salun_torch.evalx import SVC_MIA
-from salun_torch.utils.device import (make_generator, resolve_device,
-                                      seed_all, set_tf32)
+from salun_torch.utils.device import make_generator, seed_all, set_tf32
 
 
 def _sync(device):
@@ -49,7 +51,11 @@ def _sync(device):
 
 def run(argv=None, use_mask=True) -> dict:
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    return dist_ctx.run(args.dp, args.device,
+                        lambda dev: _run(args, dev, use_mask))
+
+
+def _run(args, device, use_mask: bool) -> dict:
     set_tf32(True)
     os.makedirs(args.save_dir, exist_ok=True)
     seed_all(args.seed)
@@ -62,6 +68,7 @@ def run(argv=None, use_mask=True) -> dict:
     print(f"number of forget dataset {len(forget)}")
     if args.model_path and args.unlearn != "retrain":
         load_model(model, args.model_path)
+    dist_ctx.place_replicated(model)
 
     mask = None
     if use_mask and args.mask_path:
@@ -86,6 +93,7 @@ def run(argv=None, use_mask=True) -> dict:
     if args.resume and os.path.exists(unlearn_ckpt):
         print(f"resume from unlearn checkpoint {unlearn_ckpt}")
         load_model(model, unlearn_ckpt)
+        dist_ctx.place_replicated(model)
     else:
         method = get_unlearn_method(args.unlearn)
         source = generator_source(make_generator(args.train_seed, device),
@@ -119,8 +127,11 @@ def run(argv=None, use_mask=True) -> dict:
     print(f"seconds: unlearn {t_unlearn:.3f}, accuracy {t_acc:.3f}, "
           f"SVC-MIA {t_mia:.3f}")
 
-    save_checkpoint(args.save_dir, args.unlearn, model)
-    save_eval_results(args.save_dir, args.unlearn, results)
+    dist_ctx.check_replicas(model.state_dict().values(), "parameters")
+    if dist_ctx.is_writer():
+        save_checkpoint(args.save_dir, args.unlearn, model)
+        save_eval_results(args.save_dir, args.unlearn, results)
+    dist_ctx.barrier()
     return results
 
 

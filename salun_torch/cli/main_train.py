@@ -14,6 +14,9 @@ function of (``--train_seed``, epoch), so a resumed run takes the steps a
 straight run takes and ends bitwise equal to it where the kernels are
 deterministic (always on the CPU).
 
+``--dp N`` under ``torchrun --nproc_per_node N`` shards each batch over N
+ranks (``salun_torch.dist.context``); rank 0 writes.
+
 Usage: python -m salun_torch.cli.main_train --dataset cifar10 \
            --arch resnet18 --epochs 182 --save_dir out/ [--resume] \
            [--device cpu]
@@ -34,8 +37,8 @@ from salun_torch.core.masked_opt import SGD, FlatParams
 from salun_torch.core.train import (cosine_warmup_lr, generator_source,
                                     multistep_lr, run_epoch, validate)
 from salun_torch.data.loader import BatchIterator
-from salun_torch.utils.device import (make_generator, resolve_device,
-                                      seed_all, set_tf32)
+from salun_torch.dist import context as dist_ctx
+from salun_torch.utils.device import make_generator, seed_all, set_tf32
 
 
 def _sync(device):
@@ -47,7 +50,10 @@ def main(argv=None) -> dict:
     """Runs the epochs; returns ``{"curves", "best_sa", "epoch_seconds",
     "images_per_epoch"}``."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    return dist_ctx.run(args.dp, args.device, lambda dev: _main(args, dev))
+
+
+def _main(args, device) -> dict:
     set_tf32(True)
     os.makedirs(args.save_dir, exist_ok=True)
     seed_all(args.seed)
@@ -76,6 +82,7 @@ def main(argv=None) -> dict:
                                         saved["curves"])
         print(f"resume from {ckpt_path} at epoch {start_epoch} "
               f"(best_sa={best_sa:.2f})")
+    dist_ctx.place_replicated(model)
 
     val_loader = BatchIterator(val, args.batch_size, shuffle=False)
     test_loader = BatchIterator(test, args.batch_size, shuffle=False)
@@ -100,14 +107,19 @@ def main(argv=None) -> dict:
 
         is_best = val_acc > best_sa
         best_sa = max(val_acc, best_sa)
-        save_train_state(ckpt_path, model, opt, gen, epoch=epoch + 1,
-                         best_sa=best_sa, curves=curves)
-        if is_best:
-            save_model(os.path.join(args.save_dir, "model_SA_best.pt"),
-                       model)
+        if dist_ctx.is_writer():
+            save_train_state(ckpt_path, model, opt, gen, epoch=epoch + 1,
+                             best_sa=best_sa, curves=curves)
+            if is_best:
+                save_model(os.path.join(args.save_dir, "model_SA_best.pt"),
+                           model)
 
-    with open(os.path.join(args.save_dir, "train_curves.json"), "w") as f:
-        json.dump(curves, f)
+    dist_ctx.check_replicas(model.state_dict().values(), "parameters")
+    if dist_ctx.is_writer():
+        with open(os.path.join(args.save_dir, "train_curves.json"),
+                  "w") as f:
+            json.dump(curves, f)
+    dist_ctx.barrier()
     return {"curves": curves, "best_sa": best_sa,
             "epoch_seconds": epoch_seconds, "images_per_epoch": len(train)}
 

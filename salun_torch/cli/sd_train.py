@@ -25,8 +25,9 @@ prompts' CLIP contexts once instead of every step. Each run writes
 which ``salun.sd.import_compvis`` reads). Weights come from a CompVis
 ``--ckpt_path`` (``.ckpt``) or, without one, from a seeded random init.
 ``--remat`` (or the yaml's ``use_checkpoint``) checkpoints each ResBlock
-and SpatialTransformer. ``--dp`` > 1 and ``--fsdp`` raise (ROADMAP queue
-1).
+and SpatialTransformer. ``--dp N`` under ``torchrun --nproc_per_node N``
+shards each batch over N ranks (``salun_torch.dist.context``; rank 0
+writes); ``--fsdp`` raises: it is not ported yet (ROADMAP E23).
 
 Usage:
   python -m salun_torch.cli.sd_train generate_mask \
@@ -52,6 +53,7 @@ import torch
 
 from salun_torch.ckpt import (load_compvis_state_dict, load_sd_mask,
                               load_sd_modules, save_compvis, save_sd_mask)
+from salun_torch.dist import context as dist_ctx
 from salun_torch.sd import data as sd_data
 from salun_torch.sd.clip_text import CLIPTextConfig, tokenize
 from salun_torch.sd.config import (SDYamlConfig, load_sd_config,
@@ -63,10 +65,7 @@ from salun_torch.sd.trainers import (frozen_copy, make_esd_step,
                                      with_mask)
 from salun_torch.sd.unet import SDUNetConfig
 from salun_torch.sd.vae import VAEConfig
-from salun_torch.utils.device import (make_generator, resolve_device,
-                                      seed_all, set_tf32)
-
-NOT_PORTED = "ROADMAP queue 1, items 7-8"
+from salun_torch.utils.device import make_generator, seed_all, set_tf32
 
 
 def _common(p):
@@ -84,8 +83,11 @@ def _common(p):
     p.add_argument("--alpha", type=float, default=0.5)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--save_dir", type=str, default="results/sd")
-    p.add_argument("--dp", type=int, default=0)
-    p.add_argument("--fsdp", action="store_true")
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel process count: run under torchrun "
+                        "--nproc_per_node N with --dp N")
+    p.add_argument("--fsdp", action="store_true",
+                   help="not ported yet (ROADMAP E23): raises")
     p.add_argument("--remat", action="store_true",
                    help="block-level gradient checkpointing on the U-Net "
                         "(the reference's use_checkpoint: True)")
@@ -189,15 +191,20 @@ class StepClock:
 
 def main(argv=None):
     args = parse_args(argv)
-    for flag, on in (("--dp", args.dp > 1), ("--fsdp", args.fsdp)):
-        if on:
-            raise NotImplementedError(f"{flag} is not ported yet "
-                                      f"({NOT_PORTED})")
-    device = resolve_device(args.device)
+    if args.fsdp:
+        raise NotImplementedError("--fsdp is not ported yet (ROADMAP E23: "
+                                  "FSDP2, tensor parallelism and sharded "
+                                  "checkpoints)")
+    return dist_ctx.run(args.dp, args.device, lambda dev: _main(args, dev))
+
+
+def _main(args, device):
     set_tf32(True)
     os.makedirs(args.save_dir, exist_ok=True)
     seed_all(args.seed)
     sd = build_modules(args, device)
+    for part in (sd.unet, sd.vae, sd.clip):
+        dist_ctx.place_replicated(part)
     gen = make_generator(args.seed, device)
     if args.cmd == "generate_mask":
         forget, _ = _imagenette_split(args)
@@ -216,7 +223,10 @@ def main(argv=None):
             result = _nsfw_removal(args, sd, optimizer, gen, device)
         else:
             result = _forget_class(args, sd, optimizer, gen, device)
-    save_compvis(os.path.join(args.save_dir, "compvis.ckpt"), sd)
+    dist_ctx.check_replicas(sd.unet.parameters(), "U-Net parameters")
+    if dist_ctx.is_writer():
+        save_compvis(os.path.join(args.save_dir, "compvis.ckpt"), sd)
+    dist_ctx.barrier()
     return result
 
 
@@ -235,7 +245,9 @@ def _generate_mask(args, sd, forget, gen, device):
                              thresholds=(args.threshold,), generator=gen)
     out = os.path.join(args.save_dir, "mask", str(args.class_to_forget))
     for t, m in masks.items():
-        save_sd_mask(os.path.join(out, f"with_{t}.pt"), m)
+        if dist_ctx.is_writer():
+            save_sd_mask(os.path.join(out, f"with_{t}.pt"), m)
+    dist_ctx.barrier()
     _sync(device)
     seconds = time.perf_counter() - t0
     print(f"mask generation seconds {seconds:.3f} ({n} images, batches of "

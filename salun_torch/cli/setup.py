@@ -28,8 +28,6 @@ def setup_model_dataset(args, device, init_seed: int):
     if num_classes is None:
         raise KeyError(name)
     args.num_classes = num_classes
-    if args.dp not in (0, 1):
-        raise NotImplementedError("--dp > 1 is not ported yet")
 
     train = D.load(name, args.data, train=True)
     test = D.load(name, args.data, train=False)

@@ -25,6 +25,8 @@ from typing import Callable, Iterable, Sequence
 
 import torch
 
+from salun_torch.dist import context as dist_ctx
+
 # The reference sweep (generate_mask.py:50).
 DEFAULT_THRESHOLDS = (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0)
 
@@ -32,7 +34,11 @@ DEFAULT_THRESHOLDS = (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0)
 def accumulate_saliency(loss_fn: Callable, params: Sequence[torch.Tensor],
                         batches: Iterable) -> list:
     """fp32 sum over ``batches`` of the gradient of ``loss_fn(batch)`` with
-    respect to ``params``, then |·|. Returns one tensor per parameter."""
+    respect to ``params``, then |·|. Returns one tensor per parameter.
+
+    Under a ``--dp`` mesh each rank's ``batches`` are its shards (its rows
+    over the global denominators): the partial sums are summed over the
+    ranks once, before |·|, so every rank holds the same saliency."""
     params = list(params)
     acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
            for p in params]
@@ -40,6 +46,7 @@ def accumulate_saliency(loss_fn: Callable, params: Sequence[torch.Tensor],
         grads = torch.autograd.grad(loss_fn(batch), params)
         for a, g in zip(acc, grads):
             a.add_(g.to(torch.float32))
+    dist_ctx.all_reduce_(acc)
     return [a.abs_() for a in acc]
 
 

@@ -10,6 +10,14 @@ giving ``offsets``/``flips`` (augment) and, for random labels, ``labels``.
 The default source draws from a ``torch.Generator``; the tests pass one
 that returns the draws of the JAX package's keys. Metrics stay on the
 device.
+
+Under a ``--dp`` mesh (``salun_torch.dist.context``) a step draws for the
+global batch, keeps this rank's rows of the batch and the draws, divides
+the loss by the global batch's weight, takes BatchNorm's moments over the
+global batch and sums the flat gradient over the ranks before the
+optimizer reads it; :func:`validate` sums its counts over the ranks. A
+batch that does not divide over the ranks runs whole on each, with no
+collective.
 """
 
 from __future__ import annotations
@@ -22,23 +30,41 @@ import torch.nn.functional as F
 from torch.func import functional_call, grad, vmap
 
 from salun_torch.data.loader import augment, draw_augment, to_device, to_float
+from salun_torch.dist import context as dist_ctx
 
 
-def cross_entropy(logits, labels, weight=None):
+def cross_entropy(logits, labels, weight=None, denom=None):
     """Mean CE over valid rows (nn.CrossEntropyLoss mean reduction); with
-    ``weight``, ``sum(nll·w) / max(sum(w), 1)`` so padding rows count 0."""
+    ``weight``, ``sum(nll·w) / max(sum(w), 1)`` so padding rows count 0.
+    ``denom`` replaces the denominator (a shard's rows over the global
+    batch's ``max(sum(w), 1)``)."""
     ll = F.log_softmax(logits.to(torch.float32), dim=-1)
     nll = -ll.gather(-1, labels.long()[:, None])[:, 0]
-    if weight is None:
-        return nll.mean()
-    return (nll * weight).sum() / torch.clamp(weight.sum(), min=1.0)
+    return _weighted_mean(nll, weight, denom)
 
 
-def weighted_accuracy(logits, labels, weight=None):
+def weighted_accuracy(logits, labels, weight=None, denom=None):
     correct = (logits.argmax(dim=-1) == labels).to(torch.float32)
-    if weight is None:
-        return correct.mean() * 100.0
-    return (correct * weight).sum() / torch.clamp(weight.sum(), min=1.0) * 100.0
+    return _weighted_mean(correct, weight, denom) * 100.0
+
+
+def _weighted_mean(x, weight, denom):
+    if weight is None and denom is None:
+        return x.mean()
+    if weight is not None:
+        x = x * weight
+    if denom is None:
+        denom = torch.clamp(weight.sum(), min=1.0)
+    return x.sum() / denom
+
+
+def global_denominator(batch: dict) -> torch.Tensor:
+    """``max(sum(w), 1)`` over a whole batch (its row count without
+    weights): the loss denominator every rank's shard divides by."""
+    w = batch.get("weight")
+    if w is None:
+        return torch.tensor(float(batch["image"].shape[0]))
+    return torch.clamp(w.sum(), min=1.0)
 
 
 def multistep_lr(base_lr: float, milestones_epochs, steps_per_epoch: int,
@@ -129,7 +155,15 @@ def train_step(model, opt, batch: dict, rand: dict, *,
     coordinates get zero gradient by the chain rule while weight decay
     still sees the raw ``p`` (``make_pruned_train_step``,
     ``salun/core/methods/prune_variants.py:37-66``).
+
+    ``batch`` and ``rand`` are the global batch's; under a ``--dp`` mesh
+    the step keeps this rank's rows of both (see the module docstring).
     """
+    rows = batch["image"].shape[0]
+    denom = None
+    if dist_ctx.rows(rows) is not None:
+        denom = global_denominator(batch)
+        batch, rand = dist_ctx.ingest(batch), dist_ctx.ingest(rand)
     img = to_float(batch["image"])
     if use_augment:
         img = augment(img, rand["offsets"], rand["flips"])
@@ -137,20 +171,27 @@ def train_step(model, opt, batch: dict, rand: dict, *,
     weight = batch.get("weight")
     model.train()
     opt.zero_grad()
-    if prune_mask is None:
-        logits = model(img)
-    else:
-        logits = functional_call(
-            model, {n: p * prune_mask[n].to(p.dtype)
-                    for n, p in model.named_parameters()}, (img,))
-    loss = loss_sign * cross_entropy(logits, label, weight)
-    loss.backward()
+    with dist_ctx.sharded(rows):
+        if prune_mask is None:
+            logits = model(img)
+        else:
+            logits = functional_call(
+                model, {n: p * prune_mask[n].to(p.dtype)
+                        for n, p in model.named_parameters()}, (img,))
+        loss = loss_sign * cross_entropy(logits, label, weight, denom)
+        loss.backward()
+    acc = weighted_accuracy(logits.detach(), label, weight, denom)
+    loss = loss.detach()
+    if denom is not None:
+        opt.flat.check_grads()
+        dist_ctx.all_reduce_([opt.flat.grad])
+        loss, acc = (v.to(torch.float32)
+                     for v in dist_ctx.sum_scalars(loss, acc))
     if l1_coeff is not None:
         coeff = l1_coeff(opt.count)
         loss = loss + coeff * add_l1_grad(opt.flat, coeff)
     opt.step()
-    return {"loss": loss.detach(),
-            "acc": weighted_accuracy(logits.detach(), label, weight)}
+    return {"loss": loss, "acc": acc}
 
 
 def run_epoch(model, opt, loader, source: Callable, device, *,
@@ -190,14 +231,20 @@ def per_sample_grads(model, sample_loss: Callable, img: torch.Tensor,
 
 @torch.no_grad()
 def validate(model, loader, device) -> float:
-    """Top-1 accuracy in % over the weighted rows (trainer/val.py)."""
+    """Top-1 accuracy in % over the weighted rows (trainer/val.py). Under a
+    ``--dp`` mesh each rank counts its rows (rank 0 a batch that does not
+    divide) and the counts are summed over the ranks."""
     model.eval()
     correct = torch.zeros((), dtype=torch.float64, device=device)
     total = torch.zeros((), dtype=torch.float64, device=device)
     for b in loader:
-        batch = to_device(b, device)
+        n = len(b["label"])
+        if dist_ctx.skips(n):
+            continue
+        batch = dist_ctx.ingest(to_device(b, device))
         pred = model(to_float(batch["image"])).argmax(dim=-1)
         hit = (pred == batch["label"]).to(torch.float32) * batch["weight"]
         correct += hit.sum()
         total += batch["weight"].sum()
+    correct, total = dist_ctx.sum_scalars(correct, total)
     return 100.0 * float(correct) / max(float(total), 1.0)

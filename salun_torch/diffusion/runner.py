@@ -9,6 +9,13 @@ The model is an ``nn.Module`` the methods take as an argument (JAX threads
 ``params``). Random draws (flips, timesteps, noise, cond-drop, dropout)
 come from an explicit ``torch.Generator`` or are injected, which is how
 the tests replay JAX's key chain.
+
+Under a ``--dp`` mesh (``salun_torch.dist.context``) each loss draws for
+the global batch, then runs the model on this rank's rows (the model's own
+draws are the global batch's, sliced) and divides by the global batch;
+the step sums the gradients over the ranks before the clip, mask
+generation sums each batch's before its clip, and the FIM sums once at
+the end.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from salun_torch.core.mask import generate_masks
 from salun_torch.core.masked_opt import clip_by_global_norm, mask_grads
 from salun_torch.data.ddpm_data import random_hflip
 from salun_torch.data.loader import to_float
+from salun_torch.dist import context as dist_ctx
 
 from .ema import ema_init, ema_update
 from .losses import eps_mse
@@ -132,7 +140,8 @@ def saliency_from_eps_loss(eps_fn, params: Sequence[torch.Tensor],
 
     Returns ``{threshold: [mask per param]}``. A batch may carry ``t``,
     ``e`` (NCHW) and ``flips`` to replay fixed draws; missing ones come
-    from ``generator`` (flips, then t, then e).
+    from ``generator`` (flips, then t, then e). On a ``--dp`` shard each
+    batch's gradient is summed over the ranks before its clip.
     """
     T = schedule.num_timesteps
     params = list(params)
@@ -150,9 +159,12 @@ def saliency_from_eps_loss(eps_fn, params: Sequence[torch.Tensor],
         e = (torch.randn(x.shape, generator=generator, device=device)
              if e is None else torch.as_tensor(e).to(device, torch.float32))
         xt = q_sample(data_transform(x), t, e, schedule)
-        loss = eps_mse(e, eps_fn(xt, t, c))
-        grads = clip_by_global_norm(torch.autograd.grad(loss, params),
-                                    grad_clip)
+        xt, t, c, e = dist_ctx.ingest((xt, t, c, e))
+        loss = eps_mse(e, eps_fn(xt, t, c)) * dist_ctx.share(n)
+        grads = torch.autograd.grad(loss, params)
+        if dist_ctx.rows(n) is not None:
+            dist_ctx.all_reduce_(grads)
+        grads = clip_by_global_norm(grads, grad_clip)
         for a, g in zip(acc, grads):
             a.add_(g.to(torch.float32))
     return generate_masks([a.abs_() for a in acc], thresholds)
@@ -180,9 +192,12 @@ class DDPMRunner:
         xt = q_sample(data_transform(x01), t, e, self.schedule)
         p_drop = (self.cfg.cond_drop_prob if cond_drop_prob is None
                   else cond_drop_prob)
-        out = model(xt, t.float(), c, train=True, cond_drop_prob=p_drop,
-                    generator=generator)
-        return eps_mse(e, out)
+        n = xt.shape[0]
+        xt, t, c, e = dist_ctx.ingest((xt, t, c, e))
+        with dist_ctx.sharded(n):
+            out = model(xt, t.float(), c, train=True,
+                        cond_drop_prob=p_drop, generator=generator)
+        return eps_mse(e, out) * dist_ctx.share(n)
 
     def _stepper(self, model, optimizer: DDPMOptimizer, loss_fn,
                  n_batches: int):
@@ -190,16 +205,24 @@ class DDPMRunner:
         ``n_batches`` batches (the generator may follow them
         positionally): loss, backward, clip (→ grad mask) → Adam, then the
         EMA when the config sets ``ema`` (``step.shadow``, ``{name:
-        tensor}``); returns the loss (a device tensor)."""
+        tensor}``); returns the loss (a device tensor). On ``--dp`` shards
+        the gradients and the loss are summed over the ranks before the
+        clip."""
         shadow = ema_init(model) if self.cfg.ema else None
 
         def step(*args, generator=None, draws=None):
             batches, rest = args[:n_batches], args[n_batches:]
             if rest:
                 (generator,) = rest
+            sharded = dist_ctx.step_sharded(*(len(b["label"])
+                                              for b in batches))
             optimizer.zero_grad()
             loss = loss_fn(model, *batches, generator=generator, draws=draws)
             loss.backward()
+            if sharded:
+                dist_ctx.all_reduce_grads(optimizer.params)
+                (loss,) = dist_ctx.sum_scalars(loss.detach())
+                loss = loss.to(torch.float32)
             optimizer.step()
             if shadow is not None:
                 ema_update(model, shadow, self.cfg.ema_rate)
@@ -277,17 +300,19 @@ class DDPMRunner:
                                           generator)
         elif cfg.method == "rl":
             xt = q_sample(data_transform(x_f), t_f, e_f, self.schedule)
-            tf = t_f.float()
-            # the model config's cond-drop rate, as JAX's model.apply here
-            state = generator.get_state()
-            out = model(xt, tf, c_f, train=True, generator=generator)
-            generator.set_state(state)
-            pseudo_c = torch.full_like(c_f, (cfg.label_to_forget + 1)
-                                       % ucfg.n_classes)
-            with torch.no_grad():
-                pseudo = model(xt, tf, pseudo_c, train=True,
-                               generator=generator)
-            forget_loss = (pseudo - out).square().mean()
+            n = xt.shape[0]
+            xt, tf, c_f = dist_ctx.ingest((xt, t_f.float(), c_f))
+            with dist_ctx.sharded(n):
+                # the model config's cond-drop rate, as JAX's model.apply
+                state = generator.get_state()
+                out = model(xt, tf, c_f, train=True, generator=generator)
+                generator.set_state(state)
+                pseudo_c = torch.full_like(c_f, (cfg.label_to_forget + 1)
+                                           % ucfg.n_classes)
+                with torch.no_grad():
+                    pseudo = model(xt, tf, pseudo_c, train=True,
+                                   generator=generator)
+            forget_loss = (pseudo - out).square().mean() * dist_ctx.share(n)
         else:
             raise NotImplementedError(cfg.method)
         return forget_loss + cfg.alpha * remain_loss
@@ -340,6 +365,8 @@ class DDPMRunner:
         ewc = sum((f * (p - p0).square()).sum()
                   for f, p, p0 in zip(fisher, model.parameters(), theta_mle,
                                       strict=True))
+        # every rank computes the penalty whole: 1/N of it each on shards
+        ewc = ewc * dist_ctx.whole_share(n)
         return l_forget + cfg.gamma * l_rem + cfg.lmbda * ewc
 
     def make_train_forget_step(self, model, optimizer: DDPMOptimizer,
@@ -369,7 +396,10 @@ class DDPMRunner:
         injectable as the batch's ``flips``, ``t``, ``e``); then for each
         timestep sample one ``vmap(grad)`` over the whole batch, squared
         and summed into an fp32 accumulator. The attention inside runs K2
-        and K3a/K3b once a site for the whole vmapped batch.
+        and K3a/K3b once a site for the whole vmapped batch. On ``--dp``
+        shards each rank takes its rows of every batch's draws (rank 0 a
+        batch that does not divide) and the sums are added over the ranks
+        once, at the end.
         """
         from torch.func import functional_call, grad, vmap
 
@@ -404,11 +434,16 @@ class DDPMRunner:
                               generator=generator, device=self.device)
                   if es is None else torch.as_tensor(es).to(self.device,
                                                              torch.float32))
+            total += n * n_timestep_samples
+            if dist_ctx.skips(n):
+                continue
+            x, c, ts = dist_ctx.ingest((x, c, ts))
+            es = dist_ctx.ingest(es, dim=1)
             for i in range(n_timestep_samples):
                 g = per_sample(params, x, c, ts[:, i].long(), es[i])
                 for name in names:
                     acc[name].add_(g[name].square().sum(0))
-            total += n * n_timestep_samples
+        dist_ctx.all_reduce_([acc[name] for name in names])
         return {name: a / total for name, a in acc.items()}
 
     # ------------------------------------------------ generate_mask

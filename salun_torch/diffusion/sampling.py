@@ -18,6 +18,8 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from salun_torch.dist import context as dist_ctx
+
 from .schedules import DiffusionSchedule
 from .unet import ConditionalUNet, cfg_eps
 
@@ -32,8 +34,8 @@ def _seq_pairs(seq: Sequence[int]):
 def _step_noise(noise, i, like, generator):
     if noise is not None:
         return noise[i].to(like.device, like.dtype)
-    return torch.randn(like.shape, generator=generator, device=like.device,
-                       dtype=like.dtype)
+    return dist_ctx.randn(like.shape, generator=generator, device=like.device,
+                          dtype=like.dtype)
 
 
 def _alpha(schedule, n, t, device):
@@ -186,17 +188,26 @@ def sample_image(model: ConditionalUNet, schedule: DiffusionSchedule, *,
     """The sampling pipeline (runners/diffusion.py sample_image): draw x_T
     (or take ``x_T``), run the chain with CFG eps, return x in [−1,1],
     NCHW; with ``return_trajectory`` ``(x, xs, x0_preds)``, the chain
-    stacked ``[steps, B, C, H, W]``."""
+    stacked ``[steps, B, C, H, W]``.
+
+    Under a ``--dp`` mesh x_T is drawn for the whole batch and each rank
+    runs the chain on its rows (``constrain_batch``; the per-step noise of
+    ``ddpm_noisy`` is drawn whole and sliced too); every rank gets the whole
+    result back."""
     seq = timestep_sequence(schedule.num_timesteps, timesteps, skip_type)
     device = classes.device
     if x_T is None:
         x_T = torch.randn((batch, channels, image_size, image_size),
                           generator=generator, device=device)
+    x_T, classes = dist_ctx.constrain_batch((x_T, classes))
+    if noise is not None and dist_ctx.active_mesh() is not None:
+        noise = dist_ctx.constrain_batch(
+            torch.stack([torch.as_tensor(z) for z in noise]), dim=1)
 
     def eps_fn(x, t):
         return cfg_eps(model, x, t, classes, cond_scale)
 
-    with torch.no_grad():
+    with torch.no_grad(), dist_ctx.sharded(batch):
         if sample_type == "generalized":
             out = generalized_steps(eps_fn, x_T, seq, schedule, eta=eta,
                                     generator=generator, noise=noise,
@@ -207,4 +218,9 @@ def sample_image(model: ConditionalUNet, schedule: DiffusionSchedule, *,
                              return_trajectory=return_trajectory)
         else:
             raise NotImplementedError(sample_type)
-    return out if return_trajectory else out[0]
+    if return_trajectory:
+        x, xs, x0s = out
+        return (dist_ctx.gather_rows(x, batch),
+                dist_ctx.gather_rows(xs, batch, dim=1),
+                dist_ctx.gather_rows(x0s, batch, dim=1))
+    return dist_ctx.gather_rows(out[0], batch)

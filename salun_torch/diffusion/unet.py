@@ -13,7 +13,8 @@ GroupNorm(32, eps 1e-6) is followed by a separate SiLU, as in ``salun``
 ``AttnBlock`` goes through ``salun_torch.kernels.attention`` (K2 forward,
 K3a/K3b backward on a CUDA tensor). Randomness (cond-drop, dropout) comes
 from an explicit ``torch.Generator``; cond-drop can also be injected as a
-``keep_mask``.
+``keep_mask``. On a shard of a ``--dp`` batch the draws are the global
+batch's, sliced (``salun_torch.dist.context.rand``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from salun_torch.dist import context as dist_ctx
 from salun_torch.kernels.attention import scaled_dot_attention
 
 
@@ -83,8 +85,8 @@ class ResnetBlock(nn.Module):
         if train and self.dropout > 0.0:
             # flax nn.Dropout: keep with prob 1 − rate, scale by 1/keep
             keep = 1.0 - self.dropout
-            mask = torch.rand(h.shape, generator=generator,
-                              device=h.device) < keep
+            mask = dist_ctx.rand(h.shape, generator=generator,
+                                 device=h.device) < keep
             h = torch.where(mask, h / keep, torch.zeros_like(h))
         h = self.conv2(h)
         if hasattr(self, "nin_shortcut"):
@@ -238,8 +240,8 @@ class ConditionalUNet(nn.Module):
             elif p_drop <= 0.0:
                 keep_mask = torch.ones(n, dtype=torch.bool, device=x.device)
             else:
-                keep_mask = torch.rand(n, generator=generator,
-                                       device=x.device) < 1.0 - p_drop
+                keep_mask = dist_ctx.rand((n,), generator=generator,
+                                          device=x.device) < 1.0 - p_drop
         cemb = torch.where(keep_mask[:, None], self.classes_emb(c.long()),
                            self.null_classes_emb[None, :])
         emb = torch.cat([temb, _mlp(self.cemb, cemb)], dim=-1)

@@ -3,7 +3,10 @@
 The port runs NCHW and uses ``nn.BatchNorm2d(momentum=0.1, eps=1e-5)``,
 whose semantics ``salun.models.layers.TorchBatchNorm`` mirrors: normalise
 with the biased batch variance, update the running variance with the
-unbiased one.
+unbiased one. Every classifier's BatchNorm is
+:class:`~salun_torch.dist.context.GlobalBatchNorm2d`, which is that module
+except in train mode on a shard of a ``--dp`` batch, where it takes the
+global batch's moments.
 """
 
 from __future__ import annotations
@@ -12,6 +15,8 @@ from typing import Sequence
 
 import torch
 from torch import nn
+
+from salun_torch.dist.context import GlobalBatchNorm2d
 
 # CIFAR statistics baked into the reference models
 # (reference Classification/models/ResNet.py:213-215).
@@ -39,7 +44,7 @@ class NormalizeByChannelMeanStd(nn.Module):
 
 
 def batch_norm(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+    return GlobalBatchNorm2d(channels, eps=1e-5, momentum=0.1)
 
 
 def init_weights(module: nn.Module, generator: torch.Generator | None) -> None:

@@ -15,6 +15,10 @@ dict). The VAE and CLIP are frozen: they run under ``torch.no_grad()``
 with ``requires_grad`` off. Random draws (VAE posterior noise, t, noise,
 initial latents) are injected or come from an explicit
 ``torch.Generator``, in JAX's order of keys. Latents and images are NCHW.
+On a shard of a ``--dp`` batch (``salun_torch.dist.context.sharded``) the
+draws are the global batch's, sliced; :meth:`SDModules.sample` draws the
+initial latents whole, runs its rows of the chain on each rank and returns
+the whole batch.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 from salun_torch.diffusion.sampling import (generalized_steps,
                                             ldm_uniform_timesteps, plms_steps)
 from salun_torch.diffusion.schedules import DiffusionSchedule
+from salun_torch.dist import context as dist_ctx
 
 from .clip_text import CLIPTextConfig, CLIPTextModel, tokenize
 from .unet import SDUNet, SDUNetConfig
@@ -43,7 +48,7 @@ def sd_schedule(num_timesteps: int = 1000, linear_start: float = 0.00085,
 
 
 def _randn(shape, generator, device):
-    return torch.randn(shape, generator=generator, device=device)
+    return dist_ctx.randn(shape, generator=generator, device=device)
 
 
 @dataclass
@@ -129,8 +134,8 @@ class SDModules:
         return (noise - out).square().mean(dim=(1, 2, 3)).mean()
 
     def draw_t(self, n, generator=None):
-        return torch.randint(0, self.schedule.num_timesteps, (n,),
-                             generator=generator, device=self.device)
+        return dist_ctx.randint(0, self.schedule.num_timesteps, (n,),
+                                generator=generator, device=self.device)
 
     def shared_step(self, images, input_ids, *, posterior=None, t=None,
                     noise=None, generator=None):
@@ -189,28 +194,31 @@ class SDModules:
             raise ValueError(f"unknown sampler {sampler!r}")
         n = len(prompts)
         max_len = self.clip.cfg.max_length
-        ctx_c = self.encode_text(tokenize(prompts, max_len))
-        ctx_u = self.encode_text(tokenize(negative_prompts or [""] * n,
-                                          max_len))
+        z = (self.initial_latents(n, image_size, generator)
+             if initial_latents is None
+             else initial_latents.to(self.device, torch.float32))
+        ids_c = tokenize(prompts, max_len)
+        ids_u = tokenize(negative_prompts or [""] * n, max_len)
+        z, ids_c, ids_u = dist_ctx.constrain_batch((z, ids_c, ids_u))
+        ctx_c, ctx_u = self.encode_text(ids_c), self.encode_text(ids_u)
         seq = ldm_uniform_timesteps(self.schedule.num_timesteps, steps)
         if sampler == "ddim":
             seq = seq[:-1]
         final_ab = float(self.schedule.alphas_cumprod[0])
-        z = (self.initial_latents(n, image_size, generator)
-             if initial_latents is None
-             else initial_latents.to(self.device, torch.float32))
         eps_fn = self.cfg_eps_fn(ctx_c, ctx_u, guidance)
-        if sampler == "plms":
-            z, _ = plms_steps(eps_fn, z, seq, self.schedule,
-                              final_alpha_bar=final_ab)
-        else:
-            z, _ = generalized_steps(eps_fn, z, seq, self.schedule, eta=eta,
-                                     generator=generator,
-                                     final_alpha_bar=final_ab)
+        with dist_ctx.sharded(n):
+            if sampler == "plms":
+                z, _ = plms_steps(eps_fn, z, seq, self.schedule,
+                                  final_alpha_bar=final_ab)
+            else:
+                z, _ = generalized_steps(eps_fn, z, seq, self.schedule,
+                                         eta=eta, generator=generator,
+                                         final_alpha_bar=final_ab)
         if return_latents:
-            return z
+            return dist_ctx.gather_rows(z, n)
         img = self.decode_latent(z)
-        return torch.clamp((img + 1.0) / 2.0, 0.0, 1.0)
+        return dist_ctx.gather_rows(torch.clamp((img + 1.0) / 2.0, 0.0, 1.0),
+                                    n)
 
     def ddim_transition(self, eps_fn, z, t: int, t_next: int,
                         final_alpha_bar: float):

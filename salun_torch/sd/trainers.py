@@ -26,6 +26,13 @@
 Parameter names are CompVis's (``input_blocks.4.1...``). Random draws are
 injected (``draws``) or come from a ``torch.Generator`` in the order of
 JAX's keys.
+
+Under a ``--dp`` mesh (``salun_torch.dist.context``) a step and each
+mask-generation batch keep this rank's rows of the batch and of the draws
+(drawn for the global batch), divide by the global batch, and sum the
+U-Net's gradients over the ranks: the step before the grad mask and Adam,
+mask generation once before ``|·|``. ESD's batch-1 chain stays whole on
+every rank.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import torch
 from salun_torch.core.mask import generate_masks
 from salun_torch.core.masked_opt import mask_grads
 from salun_torch.diffusion.sampling import _seq_pairs, ldm_uniform_timesteps
+from salun_torch.dist import context as dist_ctx
 from salun_torch.dist.topk import kth_largest
 
 from .clip_text import tokenize
@@ -162,22 +170,29 @@ def sd_generate_mask(sd: SDModules, forget_images: torch.Tensor, prompts,
         given = draws[k] if draws is not None else {}
         imgs = forget_images[i:i + batch_size].to(device)
         m = imgs.shape[0]
-        z0 = sd.encode_image(imgs, given.get("posterior"), generator)
-        ctx_c = sd.encode_text(ids_c[i:i + m] if len(ids_c) == n
-                               else ids_c[:m])
-        ctx_u = sd.encode_text(ids_u[:m])
-        t = given.get("t")
-        t = sd.draw_t(m, generator) if t is None else t.to(device).long()
-        noise = given.get("noise")
-        noise = (torch.randn(z0.shape, generator=generator, device=device)
-                 if noise is None else noise.to(device))
+        ids = (ids_c[i:i + m] if len(ids_c) == n else ids_c[:m], ids_u[:m])
+        imgs, given, (id_c, id_u) = dist_ctx.ingest((imgs, given, ids))
+        with dist_ctx.sharded(m):
+            z0 = sd.encode_image(imgs, given.get("posterior"), generator)
+            ctx_c, ctx_u = sd.encode_text(id_c), sd.encode_text(id_u)
+            b = z0.shape[0]
+            t = given.get("t")
+            t = sd.draw_t(b, generator) if t is None else t.to(device).long()
+            noise = given.get("noise")
+            noise = (dist_ctx.randn(z0.shape, generator=generator,
+                                    device=device)
+                     if noise is None else noise.to(device))
         z_t = sd.q_sample(z0, t, noise)
         e2 = sd.apply_model(torch.cat([z_t, z_t]), torch.cat([t, t]),
                             torch.cat([ctx_c, ctx_u]))
-        eps = (1 + guidance) * e2[:m] - guidance * e2[m:]
-        loss = -(noise - eps).square().mean()
-        for a, g in zip(acc, torch.autograd.grad(loss, params)):
+        eps = (1 + guidance) * e2[:b] - guidance * e2[b:]
+        loss = -(noise - eps).square().mean() * dist_ctx.share(m)
+        grads = torch.autograd.grad(loss, params)
+        if dist_ctx.skips(m):
+            continue  # a whole batch counts once, on rank 0
+        for a, g in zip(acc, grads):
             a.add_(g.to(torch.float32))
+    dist_ctx.all_reduce_(acc)
     masks = generate_masks([a.abs_() for a in acc], thresholds)
     return {t: {name: m.to(torch.uint8) for name, m in zip(names, ms)}
             for t, ms in masks.items()}
@@ -193,8 +208,9 @@ def _draw(given, shape, generator, device, low=None, high=None):
         given = torch.as_tensor(given).to(device)
         return given if low is None else given.long()
     if low is None:
-        return torch.randn(shape, generator=generator, device=device)
-    return torch.randint(low, high, shape, generator=generator, device=device)
+        return dist_ctx.randn(shape, generator=generator, device=device)
+    return dist_ctx.randint(low, high, shape, generator=generator,
+                            device=device)
 
 
 def _cached_mode(cached) -> str:
@@ -300,13 +316,33 @@ def gradient_ascent_loss(sd: SDModules, batch: dict, alpha: float = 0.5, *,
     return -forget + alpha * step("remain")
 
 
+def _batch_rows(batch) -> int:
+    """The leading dimension of a batch's first array."""
+    leaf = next(iter(batch.values()))
+    while isinstance(leaf, (tuple, list)):
+        leaf = leaf[0]
+    return len(leaf)
+
+
 def _make_step(loss_fn, optimizer: SDOptimizer):
+    """``step(batch, generator=None, draws=None)``: loss, backward, grad
+    mask, Adam; on ``--dp`` shards this rank's rows of the batch and of
+    the (global) draws, the gradients and the loss summed over the ranks
+    before the mask."""
     def step(batch, generator=None, draws=None):
+        n = _batch_rows(batch)
         optimizer.zero_grad()
-        loss = loss_fn(batch, draws, generator)
+        batch, draws = dist_ctx.ingest((batch, draws))
+        with dist_ctx.sharded(n):
+            loss = loss_fn(batch, draws, generator) * dist_ctx.share(n)
         loss.backward()
+        loss = loss.detach()
+        if dist_ctx.rows(n) is not None:
+            dist_ctx.all_reduce_grads(optimizer.params)
+            (loss,) = dist_ctx.sum_scalars(loss)
+            loss = loss.to(torch.float32)
         optimizer.step()
-        return loss.detach()
+        return loss
 
     return step
 
