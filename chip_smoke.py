@@ -68,7 +68,7 @@ Phases, each of which fails the script (exit code 1) when it fails:
    bitwise; K1's launch count equals the optimizer steps; every metric is
    finite.
 4b. The rest of the classification workload, through the port's CLIs on
-   the card (TF32 on), cut to 1 epoch each on phase 4's 12,000/2,000
+   the card (TF32 on), cut to 1 epoch each on phase 4's 6,000/1,000
    images:
    - ``main_random --unlearn GA | GA_l1 | FT | FT_l1`` with phase 4's
      ResNet-18 and 0.5 mask: every masked-out weight equals θ₀ bitwise,
@@ -82,7 +82,7 @@ Phases, each of which fails the script (exit code 1) when it fails:
      statistics, momentum, step count) equals the straight run's bitwise;
      seconds per epoch and images/s printed;
    - vgg16_bn and ResNet-50 (CIFAR stem) at full width on synthetic
-     CIFAR-100 files (12,000/2,000 images, 100 classes, 1,000 forget):
+     CIFAR-100 files (6,000/1,000 images, 100 classes, 500 forget):
      ``generate_mask``, then ``main_random --unlearn RL`` with the 0.5 mask
      for 1 epoch (CIFAR-100's relabel-and-concat regime). Checks: the
      model's parameter count (printed) equals the constant of K1's row and
@@ -97,9 +97,9 @@ Phases, each of which fails the script (exit code 1) when it fails:
    RL_proximal | FT_prune_bi | GA_prune_bi | GA_prune``. Cuts, printed: 1
    epoch each, FT_prune_bi and GA_prune_bi 2 (one prune round); fisher and
    fisher_new over the first 2,560 retain images. Checks: K1 launches
-   once a step of boundary_shrink (4), boundary_expanding (4, on its own
+   once a step of boundary_shrink, boundary_expanding (on its own
    kernel-table row, the widened model's 11,174,475 parameters checked)
-   and FT_prune (39), never on the other seven; masked-out weights equal
+   and FT_prune, never on the other seven; masked-out weights equal
    θ₀ bitwise after every main_random call (on the widened model over the
    old rows); RL_proximal leaves at least the last step's ratio of weights
    at θ_init; FT_prune_bi, GA_prune_bi and GA_prune zero exactly their
@@ -205,7 +205,7 @@ Phases, each of which fails the script (exit code 1) when it fails:
    ``sd_eval imageclassify`` over the 4 PNGs with the prompts CSV and a
    seeded torchvision-format ResNet-50 ``.pth``, on the card and on the
    CPU: the merged CSV's columns and rows, top-1 equal; then its rate
-   over 512 PNGs (those 4 shifted and mirrored by a seed) at the default
+   over 128 PNGs (those 4 shifted and mirrored by a seed) at the default
    batch 16, the call's and the network's images/s printed;
    ``compute_fid`` between two folders of 32 synthetic PNGs (finite) and
    of one against itself (≤ 1e-6 x max(1, tr Σ)); ``nudenet`` stops with
@@ -214,7 +214,7 @@ Phases, each of which fails the script (exit code 1) when it fails:
    4's ResNet-18, 0.5 mask and CIFAR-shaped data: 20 steps of masked Adam
    (``build_optimizer(kind="adam")``) over RL's forget loss: masked-out
    weights θ₀ bitwise, both moments 0 there (ms/step printed); the
-   12,000 arrays packed as spack and 64 random gathers of 256 records by
+   6,000 arrays packed as spack and 64 random gathers of 256 records by
    the native reader (the port's ``csrc/spack.cc``, built with g++) equal
    to the arrays bitwise, GB/s against the numpy reader's;
    ``device_prefetch`` batches bitwise equal to a direct ``.to(device)``,
@@ -228,8 +228,9 @@ Phases, each of which fails the script (exit code 1) when it fails:
 7. Data parallel (``--dp 2``), two ranks started by ``torchrun
    --nproc_per_node 2`` sharing the one card over gloo (NCCL refuses two
    ranks on one device; the NCCL route needs a machine with two cards),
-   each rank this script in ``--dp-child`` mode around the CLI's ``main``
-   (its kernel counts set to 0 just before and read just after), TF32 on:
+   each rank this script in ``--dp-child`` mode, one launch a phase
+   running its CLI calls in turn (each ``main``'s kernel counts set to 0
+   just before it and read just after), TF32 on:
    7a after phase 4, ``generate_mask`` and ``main_random --unlearn RL``
    with phase 4's argv (ResNet-18, global bs 256, 1 epoch) against phase
    4's files; 7b after phase 5, ``ddpm_train`` mask generation and 4
@@ -249,7 +250,29 @@ Phases, each of which fails the script (exit code 1) when it fails:
    ms/step beside the single-process one, the all-reduce's ms a step,
    each rank's peak memory. K2/K3a/K3b are held against plain at a
    rank's DDPM shape [64, 256, 256, 256] in phase 3.
-8. A ``{"kernels": [...]}`` line (launches per path and in all, PLMS's
+8. Sharded state, inside phase 6 right after 7c, two ranks sharing the
+   card over gloo: 8a a probe of ``all_gather_into_tensor`` and
+   ``reduce_scatter_tensor`` on CUDA tensors and of the (2, 1) and (1, 2)
+   ``DeviceMesh`` (inside 8b's launch, as its group comes up); 8b
+   ``sd_train random_label --dp 2 --fsdp`` with 7c's argv (2 steps at
+   global bs 2): launches as 7c's, each rank's shards as the layout rule
+   says, the first step's gradients before Adam within FSDP_GRAD_TOL of
+   7c's rank-0 dump, the U-Net within 7c's Adam gates of 7c's, θ₀ pinned;
+   per-step all-gather and reduce-scatter ms and GB, peak memory; 8e an
+   async save of the sharded U-Net and Adam state after step 1 (step 2
+   runs while it writes), restored here whole (no group) and into the (1,
+   2) TP layout in 8d's launch, each bitwise the state at the save (shard
+   digests), seconds and GB/s; 8f ``offloaded`` Adam (3 steps over the
+   U-Net, state in pinned host memory) bitwise Adam on the card, the
+   peak-memory drop and ms a step; in the same launch after 8b, at
+   ``make_mesh(1, 2)``, TF32 off: 8d one random_label loss and backward of
+   the full-width U-Net (bs 2) tensor-parallel against rank 0's
+   unsharded one (loss, gathered gradients; launches; half the heads a
+   rank), 8c the exact k-th value of the 859.5M |θ − θ₀| (the --fsdp
+   run's) split over the ranks, bitwise the one-card sort's, both timed.
+   K2/K3a/K3b at the shapes this runs ([8, N, Nk, D]) are held against
+   plain in phase 3.
+9. A ``{"kernels": [...]}`` line (launches per path and in all, PLMS's
    as ``sd_plms``; K1's
    ResNet-18 row counts the ResNet-18 paths, its vgg16_bn and ResNet-50
    rows their RL paths, its boundary_expanding row that call; K3a's and
@@ -288,7 +311,8 @@ FP32_FLOPS = 67e12         # H100 SXM fp32, outside the tensor cores
 TF32X3_FLOPS = 495e12 / 3  # H100 SXM TF32 dense, three products (3xTF32)
 
 # Main-path data: CIFAR-shaped, cut in count from CIFAR-10's 50,000/10,000
-N_TRAIN, N_TEST, N_FORGET = 12_000, 2_000, 1_000
+# (halved from 12,000/2,000 to leave the script room for phase 8)
+N_TRAIN, N_TEST, N_FORGET = 6_000, 1_000, 500
 BATCH, LR, EPOCHS = 256, 0.013, 1
 TRAIN_EPOCHS = 2  # main_train: straight, and 1 + --resume
 PRUNE_BI_EPOCHS = 2  # *_prune_bi prune when (E - epoch) % 2 == 0
@@ -318,10 +342,12 @@ D512_ROWS = {"K3a": "K3a flash_attention_bwd_dq D=512",
              "K3b": "K3b flash_attention_bwd_dkv D=512"}
 
 # Phase 7, data parallel: two ranks under torchrun share the one card
-# over gloo. K2/K3a/K3b at a rank's half of the bs-128 DDPM step.
+# over gloo. K2/K3a/K3b at a rank's half of the bs-128 DDPM step. SD:
+# 4 forget images at global bs 2, 2 steps (phase 8's FSDP run takes the
+# same 2, with an async save between them)
 ATTN_DP = [(64, 256, 256, 256)]
 DP_DDPM_ITERS, DP_SD_PER_CLASS, DP_SD_BS = 4, 4, 2
-DP_TIMEOUT = 300  # seconds, each torchrun launch
+DP_TIMEOUT = 600  # seconds, each torchrun launch (several calls)
 # Bounds of a --dp 2 run against its single-process run, TF32 on in both
 # (the CLIs' setting): cuDNN may pick other convolution algorithms at half
 # the batch, which round in other places (TF32 keeps ~3 digits), and the
@@ -394,6 +420,25 @@ ATTN_SD_ESD = [(16, 4096, 4096, 40), (16, 4096, 77, 40), (16, 1024, 1024, 80),
                (8, 4096, 77, 40)]
 ATTN_SD_ESD_BWD = [(8, 4096, 4096, 40), (8, 4096, 77, 40)]
 
+# Phase 8, sharded state: two ranks share the card over gloo. K2/K3a/K3b
+# at the SD U-Net's [8, N, Nk, D]: a rank's 4 of 8 heads under TP at bs 2
+# and all 8 heads of FSDP's half of bs 2 give the same shapes (level 0's
+# [8, 4096, 4096 or 77, 40] are ESD's rows above)
+ATTN_SD_SHARDED = [(8, 1024, 1024, 80), (8, 1024, 77, 80),
+                   (8, 256, 256, 160), (8, 256, 77, 160), (8, 64, 64, 160),
+                   (8, 64, 77, 160)]
+# the FSDP run's gradients before Adam (its first step) against the --dp 2
+# run's, TF32 on in both: each tensor's max |Δ| over its own max|g| (a
+# tensor below SHARDED_NOISE of the largest entry over that largest
+# entry: a gradient that is zero in exact arithmetic, float noise).
+# The sum over two ranks is the same either way; what differs is what
+# TF32 convolutions round where FSDP feeds them gathered weights.
+FSDP_GRAD_TOL, SHARDED_NOISE = 1e-3, 1e-6
+# TP (TF32 off) against one process at bs 2: the loss, relative, and each
+# gradient as above (its row-parallel sums are split in two)
+TP_BS, TP_LOSS_TOL, TP_GRAD_TOL = 2, 1e-5, 1e-4
+OFFLOAD_STEPS = 3  # Adam steps on the full U-Net, offloaded and not
+
 # SD chain: configs/sd/v1-inference.yaml at full width, seeded weights;
 # cut in count (16 forget images instead of 64, 2 epochs instead of 5,
 # 2 prompt rows × 2 samples at 50 DDIM steps instead of 100)
@@ -421,7 +466,7 @@ PLMS_CHECK_STEPS = 4
 # without its 3xTF32 split (~1e-3 relative a product) would exceed it
 PLMS_TOL = 1e-5
 FID_IMAGES = 32  # synthetic PNGs in each compute_fid folder
-CLASSIFY_IMAGES = 512  # PNGs imageclassify's rate is timed over
+CLASSIFY_IMAGES = 128  # PNGs imageclassify's rate is timed over
 ADAM_STEPS, ADAM_LR = 20, 1e-4
 SPACK_BATCHES = 64  # random gathers of BATCH records timed per reader
 PREFETCH_STEPS = 24  # ResNet-18 SGD steps timed per transfer
@@ -442,8 +487,12 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """``msg`` on stdout, after the seconds since the script started."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def card_name_and_limit() -> str:
@@ -946,8 +995,9 @@ def groupnorm_vs_plain(device):
 
 
 def sd_attention_vs_plain(device):
-    """K2 at the U-Net's self- and cross-attention shapes, at ESD's and at
-    D = 512 (the VAE), K3a/K3b at the U-Net's and ESD's trained forward:
+    """K2 at the U-Net's self- and cross-attention shapes, at ESD's, at
+    phase 8's sharded ones and at D = 512 (the VAE), K3a/K3b at the
+    U-Net's, ESD's trained forward and phase 8's:
     errors against the plain versions,
     times against the bound, the plain version and SDPA. Returns the
     per-shape rows."""
@@ -958,9 +1008,10 @@ def sd_attention_vs_plain(device):
 
     rows = []
     gen = torch.Generator(device=device).manual_seed(4)
-    for shape in ATTN_SD_UNET + ATTN_SD_ESD + ATTN_SD_VAE:
+    for shape in ATTN_SD_UNET + ATTN_SD_ESD + ATTN_SD_SHARDED + ATTN_SD_VAE:
         b, nq, nk, d = shape
-        backward = shape in ATTN_SD_UNET or shape in ATTN_SD_ESD_BWD
+        backward = (shape in ATTN_SD_UNET or shape in ATTN_SD_ESD_BWD
+                    or shape in ATTN_SD_SHARDED)
         q, do = (torch.randn(b, nq, d, generator=gen, device=device)
                  for _ in range(2))
         k, v = (torch.randn(b, nk, d, generator=gen, device=device)
@@ -2606,7 +2657,8 @@ def sd_path(device, attn_rows) -> dict:
     total = {k: sum(g[k] for g in got.values()) for k in names}
     gc.collect()
     torch.cuda.empty_cache()
-    dp = dp_sd(device, work, ckpt, mask_file, cfg, csv)
+    dp, sharded = dp_sd(device, work, ckpt, mask_file, cfg, csv)
+    dp.update(sharded_state_paths(device, ckpt, mask_file, cfg, *sharded))
     rest = sd_rest_paths(device, work, ckpt, mask_file, cfg,
                          result["losses"])
     rest.update(sd_sample_eval_paths(device, work, ckpt, cfg, rows))
@@ -3438,13 +3490,15 @@ def _jsonable(x):
 
 
 def dp_child(args: list) -> None:
-    """One rank of a phase-7 launch, ``torchrun --nproc_per_node 2
-    chip_smoke.py --dp-child <out> <module> <argv...>``: every kernel's
-    count is set to 0 just before ``<module>.main(argv)`` and read just
-    after, with the call's time, peak memory and backend and the time its
-    gradient all-reduces took, into ``<out>.rank<r>.json``. (One call a
-    launch: a process group destroyed at the end of a CLI's ``main`` is
-    not brought up again on torchrun's store in the same process.)"""
+    """One rank of a phase-7/8 launch, ``torchrun --nproc_per_node 2
+    chip_smoke.py --dp-child <out> <calls.json>``: the group comes up once
+    (a CLI's ``main`` keeps a group it did not bring up), then each call
+    in turn, ``{"module": <CLI module, or "tp" for tp_work>, "argv": [...],
+    "hooks": {...}}``: every kernel's count is set to 0 just before it and
+    read just after, with its time, peak memory, backend and the time its
+    gradient all-reduces took, into ``<out>.<i>.rank<r>.json``;
+    ``hooks`` are :func:`_sharded_hooks`' settings for that call."""
+    import gc
     import importlib
     import os
 
@@ -3454,16 +3508,15 @@ def dp_child(args: list) -> None:
     from salun_torch.dist import context as dist_ctx
     from salun_torch.dist import multihost
 
-    out, module, argv = args[0], args[1], args[2:]
+    out, calls = args[0], json.loads(Path(args[1]).read_text())
     cuda = torch.cuda.is_available()
 
     def sync():
         if cuda:
             torch.cuda.synchronize()
 
-    reduce = {"calls": 0, "ms": 0.0, "bytes": 0}
-    backend = {}
-    inner, init = dist_ctx.all_reduce_, multihost.initialize
+    reduce = {}
+    inner = dist_ctx.all_reduce_
 
     def timed_all_reduce(tensors, *a, **kw):
         tensors = list(tensors)
@@ -3475,84 +3528,286 @@ def dp_child(args: list) -> None:
         reduce["calls"] += 1
         reduce["bytes"] += sum(t.numel() * t.element_size() for t in tensors)
 
-    def init_and_note(device="cpu"):
-        backend["name"] = init(device)
-        return backend["name"]
-
     dist_ctx.all_reduce_ = timed_all_reduce
-    multihost.initialize = init_and_note
-    kernels = _sd_kernels()
-    for f in kernels.values():
-        f.launches = 0
-    if cuda:
-        torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    result = importlib.import_module(module).main(argv)
-    sync()
+    device = "cuda" if cuda else "cpu"
+    backend = multihost.initialize(device)
     rank = int(os.environ["RANK"])
-    rec = {"rank": rank, "seconds": time.perf_counter() - t0,
-           "launches": {k: f.launches for k, f in kernels.items()},
-           "peak_bytes": torch.cuda.max_memory_allocated() if cuda else 0,
-           "backend": backend.get("name"), "all_reduce": reduce,
-           "result": _jsonable(result)}
-    Path(f"{out}.rank{rank}.json").write_text(json.dumps(rec))
+    kernels = _sd_kernels()
+    for i, call in enumerate(calls):
+        hooks = call.get("hooks") or {}
+        rec = {"probe": collectives_probe(device)} if hooks.get("probe") \
+            else {}
+        uninstall = _sharded_hooks(rec, sync, hooks)
+        reduce.update(calls=0, ms=0.0, bytes=0)
+        for f in kernels.values():
+            f.launches = 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if call["module"] == "tp":
+            result = tp_work(call["argv"][0], rec)
+        else:
+            result = importlib.import_module(call["module"]).main(
+                call["argv"])
+        sync()
+        rec.update({"rank": rank, "seconds": time.perf_counter() - t0,
+                    "launches": {k: f.launches for k, f in kernels.items()},
+                    "peak_bytes": (torch.cuda.max_memory_allocated() if cuda
+                                   else 0),
+                    "backend": backend, "all_reduce": dict(reduce),
+                    "result": _jsonable(result)})
+        Path(f"{out}.{i}.rank{rank}.json").write_text(json.dumps(rec))
+        uninstall()
+        del result
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    multihost.shutdown()
+
+
+def collectives_probe(device) -> dict:
+    """Phase 8a, in a rank just after its group came up: what gloo carries
+    for tensors on ``device``: ``all_gather_into_tensor`` and
+    ``reduce_scatter_tensor`` against their exact values, and the (2, 1)
+    and (1, 2) ``DeviceMesh`` with their sub-groups' backends."""
+    import torch
+    import torch.distributed as dist
+
+    from salun_torch.dist.mesh import make_mesh
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    r, n = dist.get_rank(), dist.get_world_size()
+    out = {"device": str(dev)}
+    x = torch.full((3, 5), float(r + 1), device=dev)
+    gathered = torch.empty(3 * n, 5, device=dev)
+    dist.all_gather_into_tensor(gathered, x)
+    want = torch.cat([torch.full((3, 5), float(i + 1)) for i in range(n)])
+    out["all_gather_into_tensor"] = bool(torch.equal(gathered.cpu(), want))
+    y = torch.arange(4.0 * n, device=dev) * (r + 1)
+    part = torch.empty(4, device=dev)
+    dist.reduce_scatter_tensor(part, y)
+    want = (torch.arange(4.0 * n) * sum(range(1, n + 1)))[4 * r:4 * r + 4]
+    out["reduce_scatter_tensor"] = bool(torch.equal(part.cpu(), want))
+    for data, model in ((n, 1), (1, n)):
+        m = make_mesh(data=data, model=model, device=dev)
+        out[f"mesh_{data}x{model}"] = {
+            "sizes": [m.data_mesh.size(), m.model_mesh.size()],
+            "backends": [dist.get_backend(m.data_mesh.get_group()),
+                         dist.get_backend(m.model_mesh.get_group())]}
+    return out
+
+
+def _sharded_hooks(rec: dict, sync, cfg: dict):
+    """Phase 8's instruments around one call of a ``--dp-child`` rank, as
+    ``cfg`` asks (nothing when empty):
+
+    - ``grads_out``: rank 0 saves the U-Net's gradients of the first step
+      (summed over the ranks, before the grad mask and Adam) whole there;
+    - ``grads_ref``: this rank's shard of the first step's gradients
+      against that file's; ``ckpt``: the sharded U-Net and Adam state saved
+      there asynchronously after the first step's Adam (each rank's shard
+      digests recorded), waited for at the second step, before its Adam;
+      with either, the all-gathers and reduce-scatters are timed
+      (synchronised, so they run one at a time), and the hooks' times
+      between the steps.
+
+    The hooks wrap ``SDOptimizer.step`` (once a step, after the backward
+    and the gradients' sum). Returns a function that takes them off."""
+    grads_out = cfg.get("grads_out")
+    if not grads_out and not cfg.get("grads_ref"):
+        return lambda: None
+    import torch
+    import torch.distributed as dist
+
+    from salun_torch.dist import context as dist_ctx
+    from salun_torch.dist import fsdp
+    from salun_torch.sd import trainers
+
+    coll = {"all_gather": [0, 0.0, 0], "reduce_scatter": [0, 0.0, 0]}
+    busy = [False]
+
+    def timed(kind, fn):
+        def call(*args, **kw):
+            if busy[0]:
+                return fn(*args, **kw)
+            busy[0] = True
+            try:
+                sync()
+                t0 = time.perf_counter()
+                work = fn(*args, **kw)
+                if work is not None:
+                    work.wait()
+                sync()
+            finally:
+                busy[0] = False
+            out_t = args[0] if args else kw.get("output_tensor",
+                                                  kw.get("output"))
+            c = coll[kind]
+            c[0] += 1
+            c[1] += 1e3 * (time.perf_counter() - t0)
+            if out_t is not None:
+                c[2] += out_t.numel() * out_t.element_size()
+            return work
+        return call
+
+    saved = []
+    if cfg.get("grads_ref"):
+        for kind, names in (("all_gather", ("all_gather_into_tensor",
+                                            "all_gather_single",
+                                            "_all_gather_base")),
+                            ("reduce_scatter", ("reduce_scatter_tensor",
+                                                "reduce_scatter_single",
+                                                "_reduce_scatter_base"))):
+            for name in names:
+                if hasattr(dist, name):
+                    saved.append((name, getattr(dist, name)))
+                    setattr(dist, name, timed(kind, getattr(dist, name)))
+    inner = trainers.SDOptimizer.step
+    rec["steps"] = []
+    held = {}
+
+    def grads_against_ref(opt) -> dict:
+        ref = torch.load(cfg["grads_ref"], map_location="cpu", mmap=True,
+                         weights_only=True)
+        mesh = dist_ctx.active_mesh()
+        scales, diffs = {}, {}
+        for name, p in zip(opt.names, opt.params):
+            want = ref[name].to(p.grad.device if not fsdp.is_sharded(p)
+                                else fsdp.local(p.grad).device)
+            scales[name] = float(want.abs().max())
+            if fsdp.is_sharded(p):
+                (pl,) = p.grad.placements
+                want = want.chunk(mesh.data, pl.dim)[mesh.data_index]
+            diffs[name] = float((fsdp.local(p.grad) - want).abs().max())
+        top = max(scales.values())
+        errs = {n: diffs[n] / (scales[n] if scales[n] > SHARDED_NOISE * top
+                               else top) for n in diffs}
+        worst = max(errs, key=errs.get)
+        return {"worst": errs[worst], "name": worst, "top": top,
+                "noise_tensors": sum(scales[n] <= SHARDED_NOISE * top
+                                     for n in scales)}
+
+    def shard_digests(opt) -> dict:
+        """Digests of this rank's pieces of the trained state: its shard
+        of each sharded tensor, the whole ones on data index 0 only."""
+        mesh = dist_ctx.active_mesh()
+        st = opt.state()
+        names = opt.names
+        groups = {"unet": [st["unet"][n] for n in names]}
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            groups[key] = [st["adam"][n][key] for n in names]
+        out = {}
+        for key, ts in groups.items():
+            pieces = fsdp.local_pieces([t.detach() for t in ts], mesh)
+            out[key] = dist_ctx.digest(pieces)
+        out["bytes"] = sum(fsdp.local(t).numel() * 4
+                           for ts in groups.values() for t in ts)
+        return out
+
+    def step(self):
+        sync()
+        t_in = time.perf_counter()
+        n = len(rec["steps"]) + 1
+        entry = {"t_in": t_in, "collectives": {k: list(v) for k, v in
+                                               coll.items()},
+                 "peak_bytes": torch.cuda.max_memory_allocated()
+                 if torch.cuda.is_available() else 0}
+        rec["steps"].append(entry)
+        if n == 1 and grads_out and dist.get_rank() == 0:
+            torch.save({name: p.grad.detach().cpu()
+                        for name, p in zip(self.names, self.params)},
+                       grads_out)
+        if n == 1 and cfg.get("grads_ref"):
+            rec["grads"] = grads_against_ref(self)
+        if n == 2 and "handle" in held:
+            t = time.perf_counter()
+            held.pop("handle").wait()
+            now = time.perf_counter()
+            rec["ckpt"].update(wait_s=now - t, total_s=now - held["t_call"])
+        sync()
+        entry["t_hooks"] = time.perf_counter() - t_in
+        inner(self)
+        if n == 1 and cfg.get("ckpt"):
+            from salun_torch.ckpt import save_sharded
+
+            sync()
+            held["t_call"] = time.perf_counter()
+            held["handle"] = save_sharded(cfg["ckpt"], self.state(),
+                                          async_=True)
+            call_s = time.perf_counter() - held["t_call"]
+            rec["ckpt"] = {"call_s": call_s, **shard_digests(self)}
+        sync()
+        entry["t_out"] = time.perf_counter()
+
+    def uninstall():
+        trainers.SDOptimizer.step = inner
+        for name, fn in saved:
+            setattr(dist, name, fn)
+
+    trainers.SDOptimizer.step = step
+    return uninstall
 
 
 def dp_launch(what: str, calls: list) -> tuple:
-    """The CLI calls ``[(module, argv), ...]``, each with ``--dp 2`` on two
-    ranks (a torchrun launch of this script's ``--dp-child`` each), in
-    turn; fails unless each launch exits 0, both ranks wrote their record
-    on gloo, and both printed the same parameter digests (the training
-    CLIs' replica check). Returns (each call's two records, rank 0's
-    digests)."""
+    """The calls ``[(module, argv[, hooks]), ...]`` in one torchrun launch
+    of two ranks (this script's ``--dp-child``), CLI calls with ``--dp
+    2`` (module ``"tp"``: :func:`tp_work`); fails unless the launch exits
+    0, both ranks wrote each call's record on gloo, and both printed the
+    same parameter digests (the training CLIs' replica check). Returns
+    (each call's two records, rank 0's digests)."""
     import os
     import re
 
     base = WORK / "dp" / "ranks"
     base.mkdir(parents=True, exist_ok=True)
+    out = base / what.replace(" ", "_")
+    for old in base.glob(f"{out.name}.*.rank*.json"):
+        old.unlink()
+    spec = [{"module": c[0],
+             "argv": list(c[1]) + ([] if c[0] == "tp" else ["--dp", "2"]),
+             "hooks": c[2] if len(c) > 2 else None} for c in calls]
+    calls_file = base / f"{out.name}.calls.json"
+    calls_file.write_text(json.dumps(spec))
     # two ranks on this host's 8 cores; gloo's pairs on the loopback device
     env = dict(os.environ, OMP_NUM_THREADS="4")
     env.setdefault("GLOO_SOCKET_IFNAME", "lo")
-    records, walls, digests = [], [], []
-    for i, (module, argv) in enumerate(calls):
-        out = base / f"{what.replace(' ', '_')}.{i}"
-        for old in base.glob(f"{out.name}.rank*.json"):
-            old.unlink()
-        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-               "--nproc_per_node", "2", str(ROOT / "chip_smoke.py"),
-               "--dp-child", str(out), module, *argv, "--dp", "2"]
-        t0 = time.perf_counter()
-        try:
-            p = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                               text=True, timeout=DP_TIMEOUT)
-        except subprocess.TimeoutExpired:
-            fail(f"{what} {module} --dp 2: no end within {DP_TIMEOUT} s")
-        walls.append(time.perf_counter() - t0)
-        text = p.stdout + p.stderr
-        out.with_suffix(".log").write_text(text)
-        if p.returncode != 0:
-            fail(f"{what} {module} --dp 2 exited {p.returncode}:\n"
-                 f"{text[-6000:]}")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", str(ROOT / "chip_smoke.py"),
+           "--dp-child", str(out), str(calls_file)]
+    t0 = time.perf_counter()
+    try:
+        p = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                           text=True, timeout=DP_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        fail(f"{what} --dp 2: no end within {DP_TIMEOUT} s")
+    wall = time.perf_counter() - t0
+    text = p.stdout + p.stderr
+    out.with_suffix(".log").write_text(text)
+    if p.returncode != 0:
+        fail(f"{what} --dp 2 exited {p.returncode}:\n{text[-6000:]}")
+    records = []
+    for i, c in enumerate(spec):
         pair = []
         for r in (0, 1):
-            path = base / f"{out.name}.rank{r}.json"
+            path = base / f"{out.name}.{i}.rank{r}.json"
             if not path.exists():
-                fail(f"{what} {module} --dp 2: rank {r} wrote no record")
+                fail(f"{what} {c['module']} --dp 2: rank {r} wrote no record")
             pair.append(json.loads(path.read_text()))
             if pair[-1]["backend"] != "gloo":
                 fail(f"{what} --dp 2: rank {r} on {pair[-1]['backend']}, "
                      f"want gloo (two ranks share one card)")
         records.append(pair)
-        by_rank = {"0": [], "1": []}
-        for r, d in re.findall(r"rank (\d): [^\n]*?digest ([0-9a-f]{16})",
-                               text):
-            by_rank[r].append(d)
-        if by_rank["0"] != by_rank["1"]:
-            fail(f"{what} {module} --dp 2: the replicas differ: {by_rank}")
-        digests += by_rank["0"]
-    log(f"{what} --dp 2: {len(calls)} torchrun launches, "
-        f"{', '.join(f'{w:.1f}' for w in walls)} s wall")
-    return records, digests
+    by_rank = {"0": [], "1": []}
+    for r, d in re.findall(r"rank (\d): [^\n]*?digest ([0-9a-f]{16})", text):
+        by_rank[r].append(d)
+    if by_rank["0"] != by_rank["1"]:
+        fail(f"{what} --dp 2: the replicas differ: {by_rank}")
+    secs = ", ".join(f"{pair[0]['seconds']:.1f}" for pair in records)
+    log(f"{what} --dp 2: {len(calls)} calls in one torchrun launch, "
+        f"{wall:.1f} s wall (the calls {secs} s)")
+    return records, by_rank["0"]
 
 
 def _dp_launches(what: str, ranks: list, want: dict) -> dict:
@@ -3825,7 +4080,9 @@ def dp_sd(device, work: Path, ckpt: Path, mask_file: Path, cfg,
     """Phase 7c: ``sd_train random_label`` at 512x512, global batch 2, 2
     steps, and ``sd_generate_images`` (phase 6's rows and settings) at
     ``--dp 2`` on phase 6's checkpoint, held against a single-process
-    random_label run and phase 6's images."""
+    random_label run and phase 6's images. The random_label ranks leave
+    their first step's gradients and their run under ``WORK/dp/sd`` for
+    phase 8."""
     import gc
 
     import torch
@@ -3851,15 +4108,19 @@ def dp_sd(device, work: Path, ckpt: Path, mask_file: Path, cfg,
     torch.cuda.synchronize()
     gc.collect()
     torch.cuda.empty_cache()
-    (ranks, gen_ranks), digests = dp_launch("SD", [
-        ("salun_torch.cli.sd_train", rl + ["--save_dir", str(dp_dir / "two")]),
+    (ranks, gen_ranks, fsdp_ranks, tp_ranks), digests = dp_launch("SD", [
+        ("salun_torch.cli.sd_train", rl + ["--save_dir", str(dp_dir / "two")],
+         {"grads_out": str(dp_dir / "grads_dp.pt")}),
         ("salun_torch.cli.sd_generate_images", [
             "--prompts_path", str(csv), "--config", str(SD_CONFIG),
             "--ckpt_path", str(work / "rl" / "compvis.ckpt"),
             "--save_path", str(dp_dir / "images"), "--num_samples",
             str(SD_SAMPLES), "--ddim_steps", str(SD_STEPS),
             "--guidance_scale", str(SD_GUIDANCE), "--image_size",
-            str(SD_IMAGE), "--device", device.type])])
+            str(SD_IMAGE), "--device", device.type]),
+        *sharded_state_calls(rl, ckpt, cfg)])
+    sharded = (fsdp_ranks, tp_ranks, digests[1:])
+    digests = digests[:1]
     steps = DP_SD_PER_CLASS // DP_SD_BS
     unet = kernel_sites(cfg.unet)
     enc = 2 * len(cfg.vae.ch_mult) * cfg.vae.num_res_blocks + 5
@@ -3907,8 +4168,562 @@ def dp_sd(device, work: Path, ckpt: Path, mask_file: Path, cfg,
     log(f"SD generate_images --dp 2: {len(files)} PNGs against phase 6's "
         f"single-process ones: {pngs}; {ranks[0]['result']['seconds']:.3f} "
         f"s (phase 6's call above)")
+    log(f"phase 7c (SD --dp 2, with phase 8's calls in its launch): "
+        f"{time.perf_counter() - t0:.3f} s")
+    return by_path, sharded
+
+
+# ------------------------------------------------------------------ phase 8
+
+
+def _digest_pieces(pieces) -> int:
+    from salun_torch.dist import context as dist_ctx
+
+    return dist_ctx.digest(pieces)
+
+
+def _rule_pieces(names, tensors, dims, parts: int, index: int,
+                 perm_names=(), whole_on_first=True) -> list:
+    """Rank ``index``'s pieces of whole ``tensors`` under a layout of
+    ``parts`` ranks: the ``index``-th chunk along ``dims[name]`` (rows
+    permuted first for ``perm_names``: the TP GEGLU), the whole tensors on
+    index 0 only."""
+    from salun_torch.dist.sharding import geglu_perm
+
+    out = []
+    for n, t in zip(names, tensors):
+        d = dims.get(n)
+        if d is None:
+            if index == 0 or not whole_on_first:
+                out.append(t)
+            continue
+        if n in perm_names:
+            t = t[geglu_perm(t.shape[0], parts).to(t.device)]
+        out.append(t.chunk(parts, d)[index])
+    return out
+
+
+def restore_whole(ckpt_dir: Path, names, shapes) -> tuple:
+    """The sharded checkpoint read into whole CPU tensors in this process
+    (no process group): ``{"unet", "adam"}`` and the seconds it took."""
+    import torch
+
+    from salun_torch.ckpt import restore_sharded
+
+    like = {"unet": {n: torch.empty(shapes[n]) for n in names},
+            "adam": {n: {"exp_avg": torch.empty(shapes[n]),
+                         "exp_avg_sq": torch.empty(shapes[n]),
+                         "step": torch.zeros(())} for n in names}}
+    t0 = time.perf_counter()
+    state = restore_sharded(str(ckpt_dir), like)
+    return state, time.perf_counter() - t0
+
+
+def _state_groups(state, names) -> dict:
+    groups = {"unet": [state["unet"][n] for n in names]}
+    for key in ("exp_avg", "exp_avg_sq", "step"):
+        groups[key] = [state["adam"][n][key] for n in names]
+    return groups
+
+
+def expected_digests(groups, names, dims, parts, perm_names, device) -> list:
+    """Each rank's digests of its pieces of the whole state ``groups``
+    under a layout (:func:`_rule_pieces`), computed on the card."""
+    out = []
+    for index in range(parts):
+        rank = {}
+        for key, ts in groups.items():
+            pieces = _rule_pieces(names, ts, dims if key != "step" else {},
+                                  parts, index, perm_names)
+            rank[key] = _digest_pieces([p.to(device) for p in pieces])
+        out.append(rank)
+    return out
+
+
+def tp_work(cfg_path: str, rec: dict) -> None:
+    """Phase 8's tensor-parallel call in a ``--dp-child`` rank (the group
+    is up), at ``make_mesh(data=1, model=2)`` with TF32 off:
+
+    - 8d: one random_label loss and backward of the full-width U-Net at
+      global bs 2 (the forget forward against the no-grad pseudo forward,
+      plus α times the remain forward against its noise), first on rank 0
+      unsharded, then tensor-parallel on both ranks with the kernels
+      counted; the loss and the gathered gradients against the unsharded
+      ones;
+    - 8c: the sharded exact k-th value of the 859.5M |θ − θ₀| split in two
+      halves over the ranks against the one-card sort (rank 0), timed;
+    - 8e: the FSDP run's checkpoint restored into this TP layout; the
+      digests of this rank's pieces recorded.
+
+    Fills ``rec``; TF32 is back on at the end."""
+    import dataclasses
+
+    import torch
+
+    from salun_torch.ckpt import load_compvis_state_dict, restore_sharded
+    from salun_torch.dist import fsdp, sharding
+    from salun_torch.dist.mesh import make_mesh
+    from salun_torch.dist.topk import kth_largest, kth_largest_sharded
+    from salun_torch.sd.config import load_sd_config
+    from salun_torch.sd.unet import SDUNet
+    from salun_torch.utils.device import set_tf32
+
+    cfg = json.loads(Path(cfg_path).read_text())
+    cuda = torch.cuda.is_available()
+    dev = torch.device("cuda", torch.cuda.current_device()) if cuda \
+        else torch.device("cpu")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    mesh = make_mesh(data=1, model=2, device=dev)
+    rank = mesh.rank
+    set_tf32(False)
+    unet_cfg = dataclasses.replace(load_sd_config(cfg["config"]).unet,
+                                   remat=False)
+    prefix = "model.diffusion_model."
+
+    def unet_state(path):
+        sd = load_compvis_state_dict(path)
+        return {k[len(prefix):]: v for k, v in sd.items()
+                if k.startswith(prefix)}
+
+    theta0 = unet_state(cfg["ckpt"])
+
+    def fresh():
+        with torch.device(dev):
+            u = SDUNet(unet_cfg)
+        u.load_state_dict(theta0)
+        return u
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    b = TP_BS
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    lat = cfg["latent"]
+    z_f, z_p, z_r, noise = (rn(b, 4, lat, lat) for _ in range(4))
+    ctx_f, ctx_p, ctx_r = (rn(b, 77, unet_cfg.context_dim) for _ in range(3))
+    t_f = torch.randint(0, 1000, (b,), generator=gen, device=dev).float()
+    t_r = torch.randint(0, 1000, (b,), generator=gen, device=dev).float()
+
+    def loss_of(u):
+        out_f = u(z_f, t_f, ctx_f)
+        with torch.no_grad():
+            pseudo = u(z_p, t_f, ctx_p)
+        remain = (u(z_r, t_r, ctx_r) - noise).square().mean()
+        return (out_f - pseudo).square().mean() + SD_ALPHA * remain
+
+    kernels = _sd_kernels()
+    ref = None
+    if rank == 0:
+        u = fresh()
+        sync()
+        t0 = time.perf_counter()
+        loss = loss_of(u)
+        loss.backward()
+        sync()
+        rec["ref_s"] = time.perf_counter() - t0
+        ref = {"loss": float(loss),
+               "grads": {n: p.grad for n, p in u.named_parameters()}}
+        del u, loss
+    torch.distributed.barrier()
+    tp = fresh()
+    sharding.shard_params(tp, mesh)
+    specs = sharding.sd_unet_pspecs(tp)
+    for f in kernels.values():
+        f.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    loss = loss_of(tp)
+    loss.backward()
+    sync()
+    rec["tp_s"] = time.perf_counter() - t0
+    rec["launches"] = {k: f.launches for k, f in kernels.items()}
+    rec["local_q"] = list(fsdp.local(
+        tp.input_blocks[1][1].transformer_blocks[0].attn1.to_q.weight).shape)
+    rec["n_sharded"] = sharding.count_sharded(specs)
+    t0 = time.perf_counter()
+    grads = sharding.full_grads(tp)
+    rec["gather_grads_s"] = time.perf_counter() - t0
+    if rank == 0:
+        top = max(float(g.abs().max()) for g in ref["grads"].values())
+        worst, name = 0.0, None
+        for n, want in ref["grads"].items():
+            scale = float(want.abs().max())
+            err = float((grads[n] - want).abs().max()) / (
+                scale if scale > SHARDED_NOISE * top else top)
+            if err > worst:
+                worst, name = err, n
+        rec["loss"] = [float(loss), ref["loss"]]
+        rec["grad_err"] = {"worst": worst, "name": name}
+    del grads, ref, loss
+    for p in tp.parameters():
+        p.grad = None
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # 8c: the exact k-th value of |θ − θ₀|, sharded and sorted
+    theta = unet_state(cfg["theta"])
+    n_total = sum(v.numel() for v in theta0.values())
+    flat = torch.empty(n_total, device=dev)
+    o = 0
+    for k_, v in theta0.items():
+        m = v.numel()
+        flat[o:o + m] = (theta[k_].to(dev).reshape(-1)
+                         - v.to(dev).reshape(-1)).abs()
+        o += m
+    del theta
+    half = flat.chunk(2)[rank]
+    rec["kth"] = []
+    for k in cfg["ks"]:
+        sync()
+        t0 = time.perf_counter()
+        got = kth_largest_sharded([half], k)
+        sync()
+        row = {"k": k, "sharded_ms": 1e3 * (time.perf_counter() - t0),
+               "sharded_bits": int(got.view(torch.int32)),
+               "value": float(got)}
+        if rank == 0:
+            t0 = time.perf_counter()
+            want = kth_largest(flat, k)
+            sync()
+            row.update(sort_ms=1e3 * (time.perf_counter() - t0),
+                       sort_bits=int(want.view(torch.int32)))
+        rec["kth"].append(row)
+    del flat, half
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # 8e: the FSDP checkpoint into this layout
+    geglu = sharding._geglu_names(tp)
+    names = cfg["names"]
+    params = dict(tp.named_parameters())
+
+    def like_of(p, n):
+        if n in geglu:
+            return torch.empty(p.shape, device=dev)
+        return torch.zeros_like(p)
+
+    like = {"unet": {n: (torch.empty(params[n].shape, device=dev)
+                         if n in geglu else params[n].detach())
+                     for n in names},
+            "adam": {n: {"exp_avg": like_of(params[n], n),
+                         "exp_avg_sq": like_of(params[n], n),
+                         "step": torch.zeros(())} for n in names}}
+    sync()
+    t0 = time.perf_counter()
+    restore_sharded(cfg["ckpt_dir"], like)
+    sync()
+    rec["restore_s"] = time.perf_counter() - t0
+    dims = {n: d for n, d in specs.items() if d is not None}
+    digests = {}
+    for key, ts in _state_groups(like, names).items():
+        pieces = []
+        for n, t in zip(names, ts):
+            if key != "step" and n in geglu:
+                pieces += _rule_pieces([n], [t], dims, mesh.model, rank,
+                                       geglu)
+            elif fsdp.is_sharded(t) and dims.get(n) is not None:
+                pieces.append(fsdp.local(t))
+            elif rank == 0:
+                pieces.append(fsdp.local(t))
+        digests[key] = _digest_pieces(pieces)
+    rec["restore_digests"] = digests
+    set_tf32(True)
+
+
+def offload_check(device, unet_sd: dict) -> None:
+    """Phase 8f: OFFLOAD_STEPS Adam steps (lr 1e-5) over the full U-Net's
+    parameters with the same gradients each step (a fixed function of the
+    parameters), on the card and through ``offloaded`` (state in pinned
+    host memory between steps): bitwise equal; each run's peak memory
+    above the parameters and its ms a step."""
+    import gc
+
+    import torch
+
+    from salun_torch.dist.host_offload import offloaded
+
+    def run(wrap):
+        params = [torch.nn.Parameter(v.to(device)) for v in unet_sd.values()]
+        opt = wrap(torch.optim.Adam(params, lr=SD_LR))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(OFFLOAD_STEPS):
+            for p in params:
+                p.grad = torch.cos(p.detach() * (i + 1))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt.step()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            for p in params:
+                p.grad = None
+        peak = torch.cuda.max_memory_allocated() - base
+        resident = torch.cuda.memory_allocated() - base
+        out = [p.detach() for p in params]
+        del opt
+        return out, peak, resident, times
+
+    plain, peak_a, res_a, ms_a = run(lambda o: o)
+    off, peak_b, res_b, ms_b = run(lambda o: offloaded(o))
+    same = all(torch.equal(a, b) for a, b in zip(plain, off))
+    del plain, off
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not same:
+        fail("offloaded Adam differs from Adam on the card")
+    log(f"8f host offload: {OFFLOAD_STEPS} Adam steps over the U-Net's "
+        f"{sum(v.numel() for v in unet_sd.values())} parameters bitwise "
+        f"equal with the state in pinned host memory; peak above the "
+        f"parameters {peak_a / 2**30:.3f} GiB on the card against "
+        f"{peak_b / 2**30:.3f} GiB offloaded (drop "
+        f"{(peak_a - peak_b) / 2**30:.3f} GiB); between steps "
+        f"{res_a / 2**30:.3f} against {res_b / 2**30:.3f} GiB resident; "
+        f"ms a step {[round(x, 3) for x in ms_a]} against "
+        f"{[round(x, 3) for x in ms_b]} (streaming adds "
+        f"{sum(ms_b[1:]) / len(ms_b[1:]) - sum(ms_a[1:]) / len(ms_a[1:]):.3f}"
+        f" ms a step after the first)")
+
+
+def tp_launches(tp: list, want: dict) -> None:
+    for rec in tp:
+        if rec["launches"] != want:
+            fail(f"8d rank {rec['rank']}: launches {rec['launches']}, the "
+                 f"step implies {want}")
+
+
+def sharded_state_calls(rl: list, ckpt: Path, cfg) -> list:
+    """Phase 8's two calls of phase 7c's launch, after 7c's own (whose
+    random_label ranks dump their first step's gradients): 8a and 8b,
+    ``sd_train`` with 7c's random_label argv ``rl`` and ``--fsdp`` (8e's
+    async save inside it); then 8c, 8d and 8e's TP restore
+    (:func:`tp_work`)."""
+    import torch
+
+    from salun_torch.sd.unet import SDUNet
+
+    dp_dir = WORK / "dp" / "sd"
+    fsdp_dir, ckpt_dir = dp_dir / "fsdp", dp_dir / "sharded_ckpt"
+    with torch.device("meta"):
+        meta = SDUNet(cfg.unet)
+    n = sum(p.numel() for p in meta.parameters())
+    tp_cfg = dp_dir / "tp.json"
+    tp_cfg.write_text(json.dumps({
+        "config": str(SD_CONFIG), "ckpt": str(ckpt),
+        "theta": str(fsdp_dir / "compvis.ckpt"),
+        "ks": [1, n // 8, n // 4, 3 * n // 8],  # in the half let move
+        "latent": SD_IMAGE // 8, "ckpt_dir": str(ckpt_dir),
+        "names": [k for k, _ in meta.named_parameters()]}))
+    return [("salun_torch.cli.sd_train",
+             rl + ["--fsdp", "--save_dir", str(fsdp_dir)],
+             {"probe": True, "grads_ref": str(dp_dir / "grads_dp.pt"),
+              "ckpt": str(ckpt_dir)}),
+            ("tp", [str(tp_cfg)])]
+
+
+def sharded_state_paths(device, ckpt: Path, mask_file: Path, cfg,
+                        ranks: list, tp: list, digests: list) -> dict:
+    """Phase 8's checks on the records of its two calls (``ranks``: the
+    ``--fsdp`` run's, ``tp``: :func:`tp_work`'s; ``digests``: the
+    ``--fsdp`` run's replica digests), with 8e's whole restore and 8f in
+    this process between them. Returns the launches by path."""
+    import gc
+
+    import torch
+
+    from salun_torch.ckpt import load_compvis_state_dict, load_sd_mask
+    from salun_torch.dist import fsdp
+    from salun_torch.dist.mesh import Mesh
+    from salun_torch.dist.sharding import _geglu_names, sd_unet_pspecs
+    from salun_torch.sd.unet import SDUNet, kernel_sites
+
+    t_phase = time.perf_counter()
+    dp_dir = WORK / "dp" / "sd"
+    fsdp_dir, ckpt_dir = dp_dir / "fsdp", dp_dir / "sharded_ckpt"
+    log(f"phase 8 (sharded state): the --fsdp call {ranks[0]['seconds']:.1f}"
+        f" s, the TP call {tp[0]['seconds']:.1f} s of 7c's launch")
+    # 8a
+    for rec in ranks:
+        pr = rec["probe"]
+        if not (pr["all_gather_into_tensor"] and pr["reduce_scatter_tensor"]
+                and pr["mesh_2x1"]["sizes"] == [2, 1]
+                and pr["mesh_1x2"]["sizes"] == [1, 2]
+                and {b for m in ("mesh_2x1", "mesh_1x2")
+                     for b in pr[m]["backends"]} == {"gloo"}):
+            fail(f"8a rank {rec['rank']}: gloo on the card: {pr}")
+    log(f"8a collectives probe (gloo, CUDA tensors, two ranks on one "
+        f"card): {ranks[0]['probe']}")
+
+    # 8b: launches, shards, gradients, weights, time and memory
+    steps = DP_SD_PER_CLASS // DP_SD_BS
+    unet = kernel_sites(cfg.unet)
+    enc = 2 * len(cfg.vae.ch_mult) * cfg.vae.num_res_blocks + 5
+    names = list(_sd_kernels())
+    k2, k4, k2_re, k4_re = (unet["k2"], unet["k4"], unet["k2_remat"],
+                            unet["k4_remat"])
+    by_path = _dp_launches("SD random_label --fsdp", ranks, dict(zip(names, (
+        0, steps * (3 + 3 * k2 + 2 * k2_re), steps * 2 * k2,
+        steps * 2 * k2, steps * (3 * enc + 3 * k4 + 2 * k4_re),
+        steps * 2 * k4))))
+    with torch.device("meta"):
+        meta = SDUNet(cfg.unet)
+    specs = fsdp.fsdp_pspecs(meta, Mesh(data=2, rank=0, device=device,
+                                        backend="gloo"))
+    shapes = {n: list(p.shape) for n, p in meta.named_parameters()}
+    for rec in ranks:
+        local = rec["result"]["fsdp_local_shapes"]
+        bad = [n for n, d in specs.items()
+               if local[n] != [f // 2 if i == d else f
+                               for i, f in enumerate(shapes[n])]]
+        if bad:
+            fail(f"8b rank {rec['rank']}: shards off the rule: {bad[:5]}")
+    n_sh = fsdp.count_sharded(specs)
+    sharded_numel = sum(math.prod(shapes[n]) for n, d in specs.items()
+                        if d is not None)
+    worst = max(rec["grads"]["worst"] for rec in ranks)
+    if not worst <= FSDP_GRAD_TOL:
+        fail(f"8b gradients before Adam {[r['grads'] for r in ranks]} "
+             f"against --dp 2's (bound {FSDP_GRAD_TOL})")
+    mask = load_sd_mask(str(mask_file), device)
+    check_sd_pinned(ckpt, fsdp_dir / "compvis.ckpt", mask,
+                    "random_label --dp 2 --fsdp", device)
+    del mask
+    prefix = "model.diffusion_model."
+    a, b = (load_compvis_state_dict(str(dp_dir / d / "compvis.ckpt"))
+            for d in ("two", "fsdp"))
+    a = {k: v for k, v in a.items() if k.startswith(prefix)}
+    share, worst_w = drift(a, b, 0.0, SD_LR / 10)
+    del a, b
+    if share > DP_ADAM_SHARE or worst_w > 2 * steps * SD_LR:
+        fail(f"8b --fsdp: {share} of the U-Net beyond lr/10 of the --dp 2 "
+             f"run's, max |Δ| {worst_w} (bounds {DP_ADAM_SHARE}, "
+             f"{2 * steps * SD_LR})")
+    log(f"8b sd_train random_label --dp 2 --fsdp ({steps} steps, global bs "
+        f"{DP_SD_BS}, {SD_IMAGE}x{SD_IMAGE}, remat): {n_sh} of "
+        f"{len(specs)} U-Net tensors sharded ({sharded_numel} of "
+        f"{sum(math.prod(v) for v in shapes.values())} parameters), each "
+        f"rank's shards as the rule says; the first step's gradients before "
+        f"Adam within {worst:.3e} of phase 7c's --dp 2 ones (bound "
+        f"{FSDP_GRAD_TOL}; worst {ranks[0]['grads']['name']} on rank 0, "
+        f"{ranks[0]['grads']['noise_tensors']} noise-level tensors); the "
+        f"U-Net beyond lr/10 of phase 7c's: {share:.3e} (bound "
+        f"{DP_ADAM_SHARE}), max |Δ| {worst_w:.3e}; masked-out weights θ₀ "
+        f"bitwise; replica digests of the gathered U-Net {digests}")
+    for rec in ranks:
+        st = rec["steps"]
+        fwd = [1e3 * (st[i]["t_in"] - st[i - 1]["t_out"])
+               for i in range(1, len(st))]
+        per = []
+        for i in range(len(st)):
+            prev = st[i - 1]["collectives"] if i else {
+                "all_gather": [0, 0.0, 0], "reduce_scatter": [0, 0.0, 0]}
+            cur = st[i]["collectives"]
+            per.append({k: [cur[k][j] - prev[k][j] for j in range(3)]
+                        for k in cur})
+        log(f"8b rank {rec['rank']}: forward+backward ms of steps 2-{steps} "
+            f"{[round(x, 1) for x in fwd]} (with the async save writing; "
+            f"CLI ms/step {rec['result']['ms_per_step']:.1f}); per "
+            f"step all-gathers (calls, ms, GB out) "
+            f"{[(c['all_gather'][0], round(c['all_gather'][1], 1), round(c['all_gather'][2] / 1e9, 3)) for c in per]}"
+            f", reduce-scatters "
+            f"{[(c['reduce_scatter'][0], round(c['reduce_scatter'][1], 1), round(c['reduce_scatter'][2] / 1e9, 3)) for c in per]}"
+            f" (each synchronised, so they run one at a time); peak memory "
+            f"through step {steps} {st[-1]['peak_bytes'] / 2**30:.3f} GiB, "
+            f"the call {rec['peak_bytes'] / 2**30:.3f} GiB (the writer's "
+            f"gather included); the call {rec['seconds']:.1f} s")
+
+    # 8e: the async save, restored whole here
+    ck = [rec["ckpt"] for rec in ranks]
+    nbytes = sum(c["bytes"] for c in ck)
+    log(f"8e async save of the sharded U-Net and Adam state after step 1: "
+        f"{nbytes / 1e9:.3f} GB from both ranks; the call returned in "
+        f"{max(c['call_s'] for c in ck):.3f} s, done "
+        f"{max(c['total_s'] for c in ck):.3f} s after it (step 2 ran "
+        f"meanwhile; the wait at its end {max(c['wait_s'] for c in ck):.3f} s), "
+        f"{nbytes / 1e9 / max(c['total_s'] for c in ck):.3f} GB/s")
+    train = [n for n, p in meta.named_parameters()]
+    gc.collect()
+    torch.cuda.empty_cache()
+    state, restore_s = restore_whole(ckpt_dir, train, shapes)
+    groups = _state_groups(state, train)
+    dims = {n: d for n, d in specs.items() if d is not None}
+    want = expected_digests(groups, train, dims, 2, (), device)
+    for rec, w in zip(ranks, want):
+        got = {k: rec["ckpt"][k] for k in w}
+        if got != w:
+            fail(f"8e rank {rec['rank']}: the whole restore's pieces "
+                 f"{w} differ from the state at the save {got}")
+    log(f"8e restored whole in one process (no group) in {restore_s:.3f} s "
+        f"({nbytes / 1e9 / restore_s:.3f} GB/s, the files warm in the "
+        f"page cache): bitwise the state at the save on both ranks' "
+        f"pieces (digests of the U-Net, both moments and the step counts)")
+    tp_specs = {n: d for n, d in sd_unet_pspecs(meta).items()
+                if d is not None}
+    geglu = _geglu_names(meta)
+    want_tp = expected_digests(groups, train, tp_specs, 2, geglu, device)
+    unet_sd = {n: state["unet"][n] for n in train}
+    del state, groups
+    gc.collect()
+    offload_check(device, unet_sd)
+    del unet_sd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8c, 8d and 8e's TP restore
+    n = sum(math.prod(v) for v in shapes.values())
+    ks = json.loads((dp_dir / "tp.json").read_text())["ks"]
+    r0 = tp[0]
+    if not (abs(r0["loss"][0] - r0["loss"][1])
+            <= TP_LOSS_TOL * abs(r0["loss"][1])
+            and r0["grad_err"]["worst"] <= TP_GRAD_TOL):
+        fail(f"8d TP loss {r0['loss']}, gradients {r0['grad_err']} (bounds "
+             f"{TP_LOSS_TOL}, {TP_GRAD_TOL})")
+    want_l = dict(zip(names, (0, 3 * k2, 2 * k2, 2 * k2, 3 * k4, 2 * k4)))
+    tp_launches(tp, want_l)
+    mc = cfg.unet.model_channels
+    for rec in tp:
+        if rec["local_q"] != [mc // 2, mc]:
+            fail(f"8d rank {rec['rank']}: to_q's shard {rec['local_q']}")
+    log(f"8d TP at make_mesh(1, 2), TF32 off, bs {TP_BS}: loss "
+        f"{r0['loss'][0]!r} against {r0['loss'][1]!r} unsharded (bound "
+        f"{TP_LOSS_TOL} relative); gathered gradients within "
+        f"{r0['grad_err']['worst']:.3e} (bound {TP_GRAD_TOL}; worst "
+        f"{r0['grad_err']['name']}); {r0['n_sharded']} tensors sharded, "
+        f"half the heads a rank (to_q {r0['local_q']}); each rank's launches "
+        f"{want_l}; the step {r0['tp_s']:.3f} s (both ranks on one card) "
+        f"against {r0['ref_s']:.3f} s unsharded, the gradients' gather "
+        f"{r0['gather_grads_s']:.3f} s; peak memory rank 0 "
+        f"{r0['peak_bytes'] / 2**30:.3f} GiB, rank 1 "
+        f"{tp[1]['peak_bytes'] / 2**30:.3f} GiB")
+    for i, k in enumerate(ks):
+        rows = [rec["kth"][i] for rec in tp]
+        if not (rows[0]["sharded_bits"] == rows[1]["sharded_bits"]
+                == rows[0]["sort_bits"]):
+            fail(f"8c k = {k}: sharded {rows} against the sort")
+        log(f"8c k = {k} of {n}: |θ − θ₀| of the --fsdp run {rows[0]['value']!r}"
+            f" bitwise the one-card sort's; sharded (32 rounds over two "
+            f"halves) {rows[0]['sharded_ms']:.3f} / {rows[1]['sharded_ms']:.3f}"
+            f" ms, sort {rows[0]['sort_ms']:.3f} ms")
+    for rec, w in zip(tp, want_tp):
+        if rec["restore_digests"] != w:
+            fail(f"8e rank {rec['rank']}: the TP restore's pieces "
+                 f"{rec['restore_digests']} differ from the state at the "
+                 f"save {w}")
+    log(f"8e restored into the (1, 2) TP layout in "
+        f"{max(r['restore_s'] for r in tp):.3f} s: bitwise the state at the "
+        f"save on both ranks' pieces (GEGLU rows read whole, then "
+        f"permuted)")
+    by_path[f"sharded tp rank 0"] = tp[0]["launches"]
+    by_path[f"sharded tp rank 1"] = tp[1]["launches"]
     shutil.rmtree(dp_dir, ignore_errors=True)
-    log(f"phase 7c (SD --dp 2): {time.perf_counter() - t0:.3f} s")
+    log(f"phase 8's checks in this process: "
+        f"{time.perf_counter() - t_phase:.3f} s")
     return by_path
 
 

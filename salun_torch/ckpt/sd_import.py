@@ -57,18 +57,24 @@ def load_sd_modules(sd, state_dict: dict) -> None:
             strict=True)
 
 
-def compvis_state_dict(sd) -> dict:
-    """The ``SDModules``' weights under CompVis keys, on the CPU."""
+def compvis_state_dict(sd, unet_state=None) -> dict:
+    """The ``SDModules``' weights under CompVis keys, on the CPU;
+    ``unet_state`` (whole tensors) stands for the U-Net's own state dict
+    where that is sharded."""
+    states = {part: getattr(sd, part).state_dict() for part in PREFIXES}
+    if unet_state is not None:
+        states["unet"] = unet_state
     return {prefix + k: v.detach().cpu()
             for part, prefix in PREFIXES.items()
-            for k, v in getattr(sd, part).state_dict().items()}
+            for k, v in states[part].items()}
 
 
-def save_compvis(path: str, sd) -> None:
+def save_compvis(path: str, sd, unet_state=None) -> None:
     """``{"state_dict": ...}``, as random_label.py's save_model and
-    ``salun.sd.import_compvis`` read it."""
+    ``salun.sd.import_compvis`` read it (``unet_state`` as in
+    :func:`compvis_state_dict`)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    torch.save({"state_dict": compvis_state_dict(sd)}, path)
+    torch.save({"state_dict": compvis_state_dict(sd, unet_state)}, path)
 
 
 # ------------------------------------------------------------ masks

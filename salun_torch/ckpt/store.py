@@ -12,16 +12,22 @@ reference's torch formats:
 - ``main_train``'s ``checkpoint.pt``: the model, the optimizer's
   flat momentum and step count, the step-randomness generator's state,
   ``epoch``, ``best_sa`` and the curves, all a resumed run needs to
-  continue bitwise as a straight run would.
+  continue bitwise as a straight run would;
+- sharded state (:func:`save_sharded`, :func:`restore_sharded`): a
+  directory in ``torch.distributed.checkpoint``'s format, not the JAX
+  package's orbax one. Each rank writes its own shards of DTensors (FSDP,
+  tensor parallelism) and whole tensors once; a restore reads into any
+  layout, one process or another mesh.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 
 def mask_path(save_dir: str, threshold: float) -> str:
@@ -95,3 +101,65 @@ def save_eval_results(save_dir: str, name: str, results: dict) -> None:
     os.makedirs(save_dir, exist_ok=True)
     with open(os.path.join(save_dir, f"{name}_eval_result.json"), "w") as f:
         json.dump(_floats(results), f, indent=2)
+
+
+_ASYNC_GROUP: list = [None, None]  # (the default group, its writers' group)
+
+
+def _async_group() -> Optional[dist.ProcessGroup]:
+    """A gloo group of its own for the background writes of
+    :func:`save_sharded` (created once per process group, by every rank):
+    their planning collectives run on a thread while training's run on the
+    default group, and two threads' collectives on one group could meet
+    in another order on each rank."""
+    if not dist.is_initialized():
+        return None
+    if _ASYNC_GROUP[0] is not dist.group.WORLD:
+        _ASYNC_GROUP[:] = [dist.group.WORLD, dist.new_group(backend="gloo")]
+    return _ASYNC_GROUP[1]
+
+
+class SaveHandle:
+    """What :func:`save_sharded` returns: ``wait()`` returns once the files
+    are complete (at once for a synchronous save)."""
+
+    def __init__(self, future=None):
+        self._future = future
+
+    def wait(self) -> None:
+        if self._future is None:
+            return
+        # torch returns a Future, or a response holding one
+        fut = getattr(self._future, "upload_completion", self._future)
+        fut.result()
+        self._future = None
+
+
+def save_sharded(path: str, state: dict, async_: bool = False
+                 ) -> SaveHandle:
+    """Write ``state`` (nested dicts of tensors and DTensors) to the
+    directory ``path`` with ``torch.distributed.checkpoint``: every rank
+    of the launch calls it and writes its own shards. ``async_`` copies
+    the state to host memory, returns, and writes on a background thread
+    (``dcp.async_save``): the caller may go on changing the tensors, and
+    waits on the handle before it relies on the files."""
+    import torch.distributed.checkpoint as dcp
+
+    os.makedirs(path, exist_ok=True)
+    if not async_:
+        dcp.save(state, checkpoint_id=path)
+        return SaveHandle()
+    return SaveHandle(dcp.async_save(state, checkpoint_id=path,
+                                     process_group=_async_group()))
+
+
+def restore_sharded(path: str, like: dict) -> dict:
+    """Read a :func:`save_sharded` directory into ``like`` (the same nested
+    keys, or a subset), in place, and return it. Each tensor takes its
+    own layout: a plain tensor reads the whole value, a DTensor its shard;
+    so a state saved under FSDP restores into one process or another
+    mesh."""
+    import torch.distributed.checkpoint as dcp
+
+    dcp.load(like, checkpoint_id=path)
+    return like

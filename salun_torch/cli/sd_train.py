@@ -27,7 +27,10 @@ which ``salun.sd.import_compvis`` reads). Weights come from a CompVis
 ``--remat`` (or the yaml's ``use_checkpoint``) checkpoints each ResBlock
 and SpatialTransformer. ``--dp N`` under ``torchrun --nproc_per_node N``
 shards each batch over N ranks (``salun_torch.dist.context``; rank 0
-writes); ``--fsdp`` raises: it is not ported yet (ROADMAP E23).
+writes); with it, ``--fsdp`` also shards the U-Net, its Adam moments and
+the mask over the N ranks (FSDP2, ``salun_torch.dist.fsdp``; every
+training subcommand, not ``generate_mask``); without ``--dp`` it does
+nothing.
 
 Usage:
   python -m salun_torch.cli.sd_train generate_mask \
@@ -39,6 +42,8 @@ Usage:
       out/mask/0/with_0.5.pt --save_dir unlearned/ [--device cpu]
   python -m salun_torch.cli.sd_train esd --prompt "nudity" \
       --ckpt_path sd-v1-4.ckpt --train_method noxattn --save_dir esd/
+  torchrun --standalone --nproc_per_node 2 -m salun_torch.cli.sd_train \
+      random_label ... --save_dir unlearned/ --dp 2 --fsdp
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ import torch
 from salun_torch.ckpt import (load_compvis_state_dict, load_sd_mask,
                               load_sd_modules, save_compvis, save_sd_mask)
 from salun_torch.dist import context as dist_ctx
+from salun_torch.dist import fsdp
 from salun_torch.sd import data as sd_data
 from salun_torch.sd.clip_text import CLIPTextConfig, tokenize
 from salun_torch.sd.config import (SDYamlConfig, load_sd_config,
@@ -87,7 +93,9 @@ def _common(p):
                    help="data-parallel process count: run under torchrun "
                         "--nproc_per_node N with --dp N")
     p.add_argument("--fsdp", action="store_true",
-                   help="not ported yet (ROADMAP E23): raises")
+                   help="with --dp: shard the U-Net's parameters, Adam "
+                        "moments and saliency mask over the data axis "
+                        "(ZeRO-3, FSDP2); ignored without --dp")
     p.add_argument("--remat", action="store_true",
                    help="block-level gradient checkpointing on the U-Net "
                         "(the reference's use_checkpoint: True)")
@@ -191,11 +199,20 @@ class StepClock:
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.fsdp:
-        raise NotImplementedError("--fsdp is not ported yet (ROADMAP E23: "
-                                  "FSDP2, tensor parallelism and sharded "
-                                  "checkpoints)")
     return dist_ctx.run(args.dp, args.device, lambda dev: _main(args, dev))
+
+
+def _shard_unet(unets, mesh) -> dict:
+    """FSDP over the ``data`` axis for each U-Net of ``unets`` (the trainee,
+    then ESD's teacher, which runs no backward), one layout for all;
+    returns each trainee parameter's local shape."""
+    specs = fsdp.fsdp_pspecs(unets[0], mesh)
+    for i, unet in enumerate(unets):
+        fsdp.shard_fsdp(unet, mesh, specs, reshard_after_forward=i > 0)
+    print(f"--fsdp: {fsdp.count_sharded(specs)} of {len(specs)} U-Net "
+          f"tensors sharded over {mesh.data} ranks (the rest whole)")
+    return {n: list(fsdp.local(p).shape)
+            for n, p in unets[0].named_parameters()}
 
 
 def _main(args, device):
@@ -211,22 +228,31 @@ def _main(args, device):
         return _generate_mask(args, sd, forget, gen, device)
     mask = (load_sd_mask(args.mask_path, device) if args.mask_path
             else None)
+    mesh = dist_ctx.active_mesh()
+    sharded = args.fsdp and mesh is not None
+    # the teacher is copied before the optimizer takes the U-Net
+    teacher = frozen_copy(sd.unet) if args.cmd == "esd" else None
+    shapes = (_shard_unet([u for u in (sd.unet, teacher) if u is not None],
+                          mesh) if sharded else None)
+    optimizer = with_mask(sd.unet, args.lr, args.train_method, mask)
     if args.cmd == "esd":
-        # the teacher is copied before the optimizer takes the U-Net
-        teacher = frozen_copy(sd.unet)
-        result = _esd(args, sd, teacher, with_mask(
-            sd.unet, args.lr, args.train_method, mask), gen, device)
+        result = _esd(args, sd, teacher, optimizer, gen, device)
         del teacher
+    elif args.cmd == "nsfw_removal":
+        result = _nsfw_removal(args, sd, optimizer, gen, device)
     else:
-        optimizer = with_mask(sd.unet, args.lr, args.train_method, mask)
-        if args.cmd == "nsfw_removal":
-            result = _nsfw_removal(args, sd, optimizer, gen, device)
-        else:
-            result = _forget_class(args, sd, optimizer, gen, device)
-    dist_ctx.check_replicas(sd.unet.parameters(), "U-Net parameters")
+        result = _forget_class(args, sd, optimizer, gen, device)
+    # the writers read the whole U-Net; under FSDP every rank gathers it
+    unet_state = fsdp.full_state_dict(sd.unet) if sharded else None
+    dist_ctx.check_replicas(unet_state.values() if sharded
+                            else sd.unet.parameters(), "U-Net parameters")
     if dist_ctx.is_writer():
-        save_compvis(os.path.join(args.save_dir, "compvis.ckpt"), sd)
+        save_compvis(os.path.join(args.save_dir, "compvis.ckpt"), sd,
+                     unet_state)
+    del unet_state
     dist_ctx.barrier()
+    if sharded:
+        result["fsdp_local_shapes"] = shapes
     return result
 
 
@@ -279,8 +305,15 @@ def precompute_forget_moments(sd, images_u8, batch_size: int, device):
 
 
 def _unet_pinned(params, theta_init) -> int:
-    return int(sum(int((p == t0).sum()) for p, t0 in zip(params,
-                                                         theta_init)))
+    """How many U-Net entries equal θ₀ (under FSDP, summed over the
+    ranks' shards, each whole tensor once)."""
+    mesh = dist_ctx.active_mesh()
+    if mesh is None or not any(fsdp.is_sharded(p) for p in params):
+        return int(sum(int((p == t0).sum())
+                       for p, t0 in zip(params, theta_init)))
+    count = sum(int((a == b).sum()) for a, b in zip(
+        fsdp.local_pieces(params, mesh), fsdp.local_pieces(theta_init, mesh)))
+    return int(dist_ctx.sum_scalars(count)[0])
 
 
 def _forget_class(args, sd, optimizer, gen, device):
@@ -355,6 +388,8 @@ def _forget_class(args, sd, optimizer, gen, device):
                     out["shrinks"].append({
                         "ratio": ratio, "tau": float(tau),
                         "pinned": _unet_pinned(params, theta_init)})
+                    print("proximal shrink: ratio {ratio} tau {tau!r} "
+                          "pinned {pinned}".format(**out["shrinks"][-1]))
             clock.tick()
         if losses:
             print(f"epoch {epoch} loss {float(losses[-1]):.4f}")

@@ -29,8 +29,10 @@ mesh still changes placement only, not the math:
    :func:`barrier`. Rows computed apart come back to every rank through
    :func:`gather_rows`.
 
-The only collectives are ``all_reduce`` and ``broadcast``, which gloo
-carries for CUDA tensors too, so two ranks may share one card.
+The collectives here are ``all_reduce`` and ``broadcast``; under
+``--fsdp`` (``salun_torch.dist.fsdp``) FSDP2 adds ``all_gather_into_tensor``
+and ``reduce_scatter_tensor``. gloo carries all four for CUDA tensors, so
+two ranks may share one card.
 
 Design note: an ambient context (module globals and context managers), as
 in JAX, rather than a mesh argument threaded through the method zoo's
@@ -99,17 +101,20 @@ def mesh_from_flags(dp: int = 0, device="cuda") -> Optional[Mesh]:
 def run(dp: int, device, fn):
     """``fn(device)`` with the ``--dp`` mesh active: the body of a CLI's
     ``main``. ``device`` is this rank's (:func:`mesh_from_flags`) or, with
-    one process, ``device`` resolved (``salun_torch.utils.device``). The
-    process group is destroyed at the end, whatever happens."""
+    one process, ``device`` resolved (``salun_torch.utils.device``). A
+    process group this call brings up is destroyed at the end, whatever
+    happens; one that was up before (a launch running several CLIs in
+    turn) stays up."""
     from salun_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
+    owned = not dist.is_initialized()
     mesh = mesh_from_flags(dp, dev)
     try:
         with activate(mesh):
             return fn(dev if mesh is None else mesh.device)
     finally:
-        if mesh is not None:
+        if mesh is not None and owned:
             multihost.shutdown()
 
 
@@ -280,13 +285,14 @@ def all_reduce_(tensors: Sequence[torch.Tensor],
 def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0,
                mesh: Optional[Mesh] = None,
                bucket_bytes: int = BUCKET_BYTES) -> None:
-    """Rank ``src``'s values of ``tensors`` on every rank, in place."""
+    """Rank ``src``'s values of ``tensors`` on every rank of the launch
+    (both mesh axes), in place."""
     mesh = mesh if mesh is not None else _ACTIVE
     if mesh is None:
         return
     with torch.no_grad():
-        _bucketed(lambda t: dist.broadcast(t, src=src, group=mesh.group),
-                  list(tensors), bucket_bytes)
+        _bucketed(lambda t: dist.broadcast(t, src=src), list(tensors),
+                  bucket_bytes)
 
 
 def all_reduce_grads(params: Sequence[torch.Tensor]) -> None:

@@ -1,18 +1,24 @@
-"""The data-parallel mesh (counterpart of ``salun/dist/mesh.py``).
+"""The ``(data, model)`` mesh (counterpart of ``salun/dist/mesh.py``).
 
 JAX builds a ``Mesh`` of devices with a ``data`` and a ``model`` axis. In
-the port a mesh is the process group of a torchrun launch: one rank per
-shard of the batch, so the ``data`` axis is the world size and ``model``
-is 1. Tensor parallelism (``model > 1``) and a
-``torch.distributed.device_mesh.DeviceMesh`` wait for the FSDP slice:
-``init_device_mesh("cuda", ...)`` picks NCCL, which cannot put two ranks
-on one card.
+the port a mesh is the process group of a torchrun launch laid out as a
+``torch.distributed.device_mesh.DeviceMesh`` of shape ``(data, model)``
+(rank ``r`` at ``(r // model, r % model)``): the ``data`` axis shards
+batches and, under FSDP, the state (``dist.fsdp``); the ``model`` axis
+shards the SD U-Net's attention and feed-forward weights
+(``dist.sharding``).
+
+The process group comes first, from ``multihost.initialize``: gloo where
+ranks share a card and on the CPU, NCCL with a card a rank.
+``init_device_mesh("cuda", ...)`` would pick NCCL by itself, and NCCL
+cannot put two ranks on one card, so the ``DeviceMesh`` is built over the
+group that is up, and its sub-groups must carry that group's backend.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
@@ -26,12 +32,28 @@ class Mesh:
     rank: int
     device: torch.device
     backend: str
-    group: Optional[dist.ProcessGroup] = None  # None: the default group
+    group: Optional[dist.ProcessGroup] = None  # the data axis; None: default
     model: int = 1
+    device_mesh: Any = field(default=None, compare=False, repr=False)
 
     @property
     def shape(self) -> dict:
         return {"data": self.data, "model": self.model}
+
+    @property
+    def data_index(self) -> int:
+        """This rank's coordinate along ``data``."""
+        return self.rank // self.model
+
+    @property
+    def data_mesh(self):
+        """The 1-D ``DeviceMesh`` of this rank's ``data`` axis (FSDP's)."""
+        return self.device_mesh["data"]
+
+    @property
+    def model_mesh(self):
+        """The 1-D ``DeviceMesh`` of this rank's ``model`` axis (TP's)."""
+        return self.device_mesh["model"]
 
     def divides(self, n: int) -> bool:
         return n > 0 and n % self.data == 0
@@ -42,27 +64,38 @@ class Mesh:
             raise ValueError(f"a batch of {n} does not divide over "
                              f"{self.data} ranks")
         k = n // self.data
-        return slice(self.rank * k, (self.rank + 1) * k)
+        return slice(self.data_index * k, (self.data_index + 1) * k)
 
 
 def make_mesh(data: Optional[int] = None, model: int = 1,
               device=None) -> Mesh:
-    """The mesh of the live process group: ``data`` must equal its world
-    size (default: the world size). ``model > 1`` raises: tensor
-    parallelism is not ported yet."""
-    if model != 1:
-        raise NotImplementedError("a model axis (tensor parallelism) is not "
-                                  "ported yet (ROADMAP E23)")
+    """The ``(data, model)`` mesh of the live process group: ``data ×
+    model`` must equal its world size (``data`` defaults to ``world //
+    model``). Raises when a sub-group comes up on another backend than the
+    group's."""
+    from torch.distributed.device_mesh import DeviceMesh
+
     if not dist.is_initialized():
         raise RuntimeError("no process group is up; launch with torchrun "
                            "and call salun_torch.dist.multihost.initialize")
     world = dist.get_world_size()
-    data = world if data is None else data
-    if data != world:
-        raise ValueError(f"mesh data={data} != {world} ranks")
+    if model < 1 or world % model:
+        raise ValueError(f"mesh model={model} does not divide {world} ranks")
+    data = world // model if data is None else data
+    if data * model != world:
+        raise ValueError(f"mesh {data}x{model} != {world} ranks")
     dev = torch.device("cpu" if device is None else device)
-    return Mesh(data=data, rank=dist.get_rank(), device=dev,
-                backend=dist.get_backend())
+    backend = dist.get_backend()
+    dm = DeviceMesh(dev.type, torch.arange(world).reshape(data, model),
+                    mesh_dim_names=("data", "model"))
+    for name in ("data", "model"):
+        got = dist.get_backend(dm[name].get_group())
+        if got != backend:
+            raise RuntimeError(f"the mesh's {name} axis came up on {got}, "
+                               f"the group is on {backend}")
+    group = None if model == 1 else dm["data"].get_group()
+    return Mesh(data=data, rank=dist.get_rank(), device=dev, backend=backend,
+                group=group, model=model, device_mesh=dm)
 
 
 def data_sharding(mesh: Mesh, n: int) -> slice:

@@ -33,6 +33,11 @@ mask-generation batch keep this rank's rows of the batch and of the draws
 U-Net's gradients over the ranks: the step before the grad mask and Adam,
 mask generation once before ``|·|``. ESD's batch-1 chain stays whole on
 every rank.
+
+Under ``--fsdp`` the U-Net is sharded (``salun_torch.dist.fsdp``) before
+the optimizer is built: Adam's moments and the mask take each parameter's
+placement, FSDP sums the sharded gradients (:meth:`SDOptimizer.backward`),
+and proximal's τ is the sharded exact k-th value.
 """
 
 from __future__ import annotations
@@ -46,7 +51,8 @@ from salun_torch.core.mask import generate_masks
 from salun_torch.core.masked_opt import mask_grads
 from salun_torch.diffusion.sampling import _seq_pairs, ldm_uniform_timesteps
 from salun_torch.dist import context as dist_ctx
-from salun_torch.dist.topk import kth_largest
+from salun_torch.dist import fsdp
+from salun_torch.dist.topk import kth_largest, kth_largest_sharded
 
 from .clip_text import tokenize
 from .ldm import SDModules
@@ -96,6 +102,11 @@ class SDOptimizer:
     moments, and their grads are never kept. A coordinate whose grad the
     mask zeroes on every step keeps m = v = 0, so its update is exactly 0:
     it stays bitwise at θ₀.
+
+    On an FSDP-sharded U-Net the mask takes each parameter's placement, and
+    the sharded parameters and the ones FSDP left whole get an Adam each
+    (``torch.optim``'s foreach kernels take no mix of the two; the update
+    is elementwise either way).
     """
 
     def __init__(self, unet: torch.nn.Module, lr: float,
@@ -104,6 +115,7 @@ class SDOptimizer:
         named = dict(unet.named_parameters())
         for n, p in named.items():
             p.requires_grad_(which[n])
+        self.module = unet
         self.names = [n for n in named if which[n]]
         self.params = [named[n] for n in self.names]
         self.mask = None
@@ -111,12 +123,30 @@ class SDOptimizer:
             missing = set(named) - set(mask)
             if missing:
                 raise KeyError(f"the mask misses {sorted(missing)[:5]}")
-            self.mask = [mask[n].to(named[n].device) for n in self.names]
+            self.mask = [fsdp.place_like(mask[n], named[n])
+                         for n in self.names]
         # optax.adam's defaults: b1 0.9, b2 0.999, eps 1e-8
-        self.adam = torch.optim.Adam(self.params, lr=lr)
+        whole = fsdp.replicated_params(self.params)
+        sharded = [p for p in self.params if fsdp.is_sharded(p)]
+        self.adams = [torch.optim.Adam(group, lr=lr)
+                      for group in (sharded, whole) if group]
 
     def zero_grad(self) -> None:
-        self.adam.zero_grad(set_to_none=True)
+        for adam in self.adams:
+            adam.zero_grad(set_to_none=True)
+
+    def backward(self, loss: torch.Tensor, sharded: bool) -> None:
+        """``loss.backward()`` and the gradients' sum over the ranks when
+        ``sharded`` (each rank computed its rows of the batch): FSDP sums
+        the sharded parameters' in its reduce-scatters, an all-reduce the
+        rest. A batch that stays whole leaves every rank with the whole
+        gradient (FSDP divides its sum by the rank count)."""
+        mesh = dist_ctx.active_mesh()
+        if mesh is not None:
+            fsdp.set_grad_sum(self.module, 1.0 if sharded else mesh.data)
+        loss.backward()
+        if sharded:
+            dist_ctx.all_reduce_grads(fsdp.replicated_params(self.params))
 
     @torch.no_grad()
     def step(self) -> None:
@@ -125,7 +155,19 @@ class SDOptimizer:
                      for p in self.params]
             for p, g in zip(self.params, mask_grads(grads, self.mask)):
                 p.grad = g
-        self.adam.step()
+        for adam in self.adams:
+            adam.step()
+
+    def state(self) -> dict:
+        """``{"unet": {name: parameter}, "adam": {name: {"exp_avg",
+        "exp_avg_sq", "step"}}}``: the trained state in each tensor's own
+        placement, for ``salun_torch.ckpt.save_sharded``."""
+        adam = {}
+        for n, p in zip(self.names, self.params):
+            for opt in self.adams:
+                if p in opt.state:
+                    adam[n] = dict(opt.state[p])
+        return {"unet": dict(zip(self.names, self.params)), "adam": adam}
 
 
 def make_sd_optimizer(unet, lr: float, train_method: str = "full"):
@@ -335,10 +377,10 @@ def _make_step(loss_fn, optimizer: SDOptimizer):
         batch, draws = dist_ctx.ingest((batch, draws))
         with dist_ctx.sharded(n):
             loss = loss_fn(batch, draws, generator) * dist_ctx.share(n)
-        loss.backward()
+        sharded = dist_ctx.rows(n) is not None
+        optimizer.backward(loss, sharded)
         loss = loss.detach()
-        if dist_ctx.rows(n) is not None:
-            dist_ctx.all_reduce_grads(optimizer.params)
+        if sharded:
             (loss,) = dist_ctx.sum_scalars(loss)
             loss = loss.to(torch.float32)
         optimizer.step()
@@ -400,17 +442,31 @@ def proximal_shrink(params: Sequence[torch.Tensor],
     The reference ranks over the whole model, where the frozen VAE and
     CLIP contribute zero diffs at the bottom: pass ``ratio = ratio_full −
     n_frozen``. ``ratio < 1`` means τ = 0 there, which changes nothing;
-    callers skip the shrink then."""
+    callers skip the shrink then.
+
+    FSDP-sharded parameters (and their θ₀) are read and written shard by
+    shard: τ is then ``kth_largest_sharded`` over the ``data`` axis, each
+    whole parameter counted once, and ``n`` stays the whole model's."""
     n = sum(p.numel() for p in params)
-    flat = torch.empty(n, dtype=torch.float32, device=params[0].device)
-    o = 0
+    k = max(n - int(ratio) + 1, 1)
+    if any(fsdp.is_sharded(p) for p in params):
+        mesh = dist_ctx.active_mesh()
+        pieces = [(a - b).abs_() for a, b in zip(
+            fsdp.local_pieces(params, mesh),
+            fsdp.local_pieces(theta_init, mesh))]
+        tau = kth_largest_sharded(pieces, k, group=mesh.group)
+        del pieces
+    else:
+        flat = torch.empty(n, dtype=torch.float32, device=params[0].device)
+        o = 0
+        for p, t0 in zip(params, theta_init):
+            m = p.numel()
+            torch.sub(p.reshape(-1), t0.reshape(-1), out=flat[o:o + m])
+            o += m
+        tau = kth_largest(flat.abs_(), k)
+        del flat
     for p, t0 in zip(params, theta_init):
-        k = p.numel()
-        torch.sub(p.reshape(-1), t0.reshape(-1), out=flat[o:o + k])
-        o += k
-    tau = kth_largest(flat.abs_(), max(n - int(ratio) + 1, 1))
-    del flat
-    for p, t0 in zip(params, theta_init):
+        p, t0 = fsdp.local(p), fsdp.local(t0)
         d = (p - t0).to(torch.float32)
         moved = p.to(torch.float32) - torch.sign(d) * tau
         p.copy_(torch.where(d.abs() > tau, moved, t0.to(torch.float32)))
@@ -491,7 +547,7 @@ def make_esd_step(sd: SDModules, optimizer: SDOptimizer,
             target = e_0 - negative_guidance * (e_p - e_0)
         optimizer.zero_grad()
         loss = (sd.apply_model(z, t_ddpm, ctx_n) - target).square().mean()
-        loss.backward()
+        optimizer.backward(loss, sharded=False)  # the whole chain each rank
         optimizer.step()
         return loss.detach(), t_enc
 

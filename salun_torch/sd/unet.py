@@ -67,14 +67,17 @@ class SDUNetConfig:
 
 
 class CrossAttention(nn.Module):
-    """attention.py:149-194; ``context=None`` → self-attention."""
+    """attention.py:149-194; ``context=None`` → self-attention. The head
+    count is read off the projections' width, so a rank of a tensor-
+    parallel U-Net (``salun_torch.dist.sharding``) runs its own heads."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  context_dim: int = None):
         super().__init__()
         inner = heads * dim_head
         context_dim = query_dim if context_dim is None else context_dim
-        self.heads, self.scale = heads, dim_head ** -0.5
+        self.heads, self.dim_head = heads, dim_head
+        self.scale = dim_head ** -0.5
         self.to_q = nn.Linear(query_dim, inner, bias=False)
         self.to_k = nn.Linear(context_dim, inner, bias=False)
         self.to_v = nn.Linear(context_dim, inner, bias=False)
@@ -82,8 +85,9 @@ class CrossAttention(nn.Module):
 
     def forward(self, x, context=None):
         context = x if context is None else context
-        out = multi_head_attention(self.to_q(x), self.to_k(context),
-                                   self.to_v(context), self.heads,
+        q = self.to_q(x)
+        out = multi_head_attention(q, self.to_k(context), self.to_v(context),
+                                   q.shape[-1] // self.dim_head,
                                    scale=self.scale)
         return self.to_out(out)
 

@@ -2,7 +2,9 @@
 ``process_shard`` against ``salun.dist.multihost``, the ``--dp`` flag's
 launch checks, batch slicing, and, across two spawned gloo ranks, the
 global BatchNorm against ``nn.BatchNorm2d`` over the whole batch and the
-bucketed all-reduce against the sum of the ranks' tensors."""
+bucketed all-reduce against the sum of the ranks' tensors; the ``(data,
+model)`` mesh in both layouts of two ranks; the sharded exact k-th value
+bitwise against the one-card sort and ``salun.dist.topk.kth_largest``."""
 
 import multiprocessing as mp
 import socket
@@ -17,6 +19,7 @@ from salun_torch.core.train import cross_entropy
 from salun_torch.dist import context as dist_ctx
 from salun_torch.dist.mesh import Mesh, make_mesh
 from salun_torch.dist.multihost import backend_for, process_shard
+from salun_torch.dist.topk import kth_largest, kth_largest_sharded
 
 BN_TOL = 1e-6  # relative, the global batch's moments against one process
 
@@ -47,8 +50,9 @@ def test_dp_flag_needs_a_launch_of_that_size(no_launch):
     no_launch.setenv("RANK", "0")
     with pytest.raises(ValueError, match="started 2"):
         dist_ctx.mesh_from_flags(3, "cpu")
-    with pytest.raises(NotImplementedError, match="E23"):
-        make_mesh(2, model=2)
+    # a model axis is ported (two ranks below); any mesh needs a group up
+    with pytest.raises(RuntimeError, match="no process group"):
+        make_mesh(1, model=2)
 
 
 def test_backend_follows_the_placement(monkeypatch):
@@ -168,3 +172,62 @@ def test_rows_replicas_and_draws_across_ranks(two_ranks):
         assert o["sharded_draw"], o
     # the changed bit shows on rank 1 only
     assert [o["replica_check_fails"] for o in two_ranks] == [False, True]
+
+
+@pytest.fixture(scope="module")
+def mesh_ranks():
+    """Both ranks' results of ``tests/_sharded_workers`` case ``mesh``: the
+    (2, 1) and (1, 2) meshes, and the sharded k-th value."""
+    import _sharded_workers
+
+    out = _sharded_workers.spawn("mesh")
+    for o in out:
+        assert "error" not in o, o["error"]
+    return out
+
+
+@pytest.mark.parametrize("layout", ["2x1", "1x2"])
+def test_make_mesh_lays_out_data_and_model(mesh_ranks, layout):
+    data, model = map(int, layout.split("x"))
+    for o in mesh_ranks:
+        m = o[f"mesh_{layout}"]
+        assert m["shape"] == {"data": data, "model": model}
+        assert m["sub_sizes"] == [data, model] and m["backend"] == "gloo"
+        # rank r at (r // model, r % model): its rows of a batch of 4
+        index = o["rank"] // model
+        assert m["data_index"] == index
+        assert m["rows"] == [index * 4 // data, (index + 1) * 4 // data]
+
+
+def test_sharded_kth_value_across_ranks(mesh_ranks):
+    """Pieces split unevenly (one rank three, one of them empty) over ties,
+    ±0, negatives and denormals, int and tensor k: bitwise the sort's."""
+    for o in mesh_ranks:
+        assert all(o["kth_bitwise"]), o["kth_bitwise"]
+
+
+def _tricky(n=4099, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, generator=g)
+    x[::5] = 0.0
+    x[1::9] = -0.0
+    x[2::6] = -1.0
+    x[3::11] = 2.0 ** -140  # a denormal
+    return x
+
+
+@pytest.mark.parametrize("k", [1, 3, 820, 2050, 4098, 4099])
+def test_sharded_kth_value_matches_sort_and_jax(k):
+    import jax.numpy as jnp
+
+    from salun.dist.topk import kth_largest as jax_kth
+
+    x = _tricky()
+    pieces = [x[:1000], x[1000:1000], x[1000:3333], x[3333:]]
+    got = kth_largest_sharded(pieces, k)
+    want = kth_largest(x, k)
+    ref = np.asarray(jax_kth(jnp.asarray(x.numpy()), k))
+    assert got.view(torch.int32) == want.view(torch.int32)
+    assert np.asarray(got).view(np.int32) == ref.view(np.int32)
+    with pytest.raises(ValueError, match="outside"):
+        kth_largest_sharded(pieces, x.numel() + 1)

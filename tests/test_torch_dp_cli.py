@@ -19,6 +19,14 @@ thread each), and is held against the same argv in one process:
 - ``sd_train random_label`` on the tiny SD config (rtol 1e-4, atol 1e-5 on
   all but a 1e-4 fraction of the U-Net, see ``test_sd_random_label``) and
   ``sd_generate_images`` (the same PNGs);
+- ``sd_train random_label --dp 2 --fsdp`` (the U-Net, its Adam moments
+  and the mask sharded over the two ranks) within the same bound of the
+  one-process run, the counterpart of JAX's
+  ``test_sd_random_label_dp2_and_fsdp_match_single_device``, as is
+  ``random_label --cache_vae_moments --dp 2 --fsdp``; ``esd --dp 2
+  --fsdp`` (a batch of 1 that stays whole on both ranks, a sharded frozen
+  teacher) against one process's ``esd``; ``proximal --dp 2 --fsdp`` with
+  τ (the sharded exact k-th value) bitwise the one-process τ;
 - every training run ends with both ranks' parameters bitwise equal (the
   CLIs check it and print each rank's digest).
 
@@ -131,6 +139,19 @@ def runs(tmp_path_factory):
     def cpu(argv, out, flag="--save_dir"):
         return [*argv, flag, str(tmp / out), "--device", "cpu"]
 
+    # proximal on the tiny model: the full-width CLIP is ~98% of it, so
+    # the ratio that shrinks 3/4 of the U-Net at the first step (as
+    # test_torch_sd_train_cli.test_proximal_cli picks it)
+    from salun_torch.ckpt import load_compvis_state_dict
+
+    before = load_compvis_state_dict(str(ckpt))
+    n_unet = sum(v.numel() for k, v in before.items()
+                 if k.startswith("model.diffusion_model."))
+    n_total = sum(v.numel() for k, v in before.items()
+                  if "position_ids" not in k)
+    ratio = (n_total - n_unet + 0.75 * n_unet) / (0.9 * n_total)
+    prox = ["proximal", *sd[1:], "--mask_ratio", repr(ratio)]
+
     res = {"tmp": tmp}
     res["mask1"] = generate_mask.main(cpu(mask, "m1"))
     res["rl1"] = main_random.main(cpu(rl, "r1"))
@@ -138,6 +159,11 @@ def runs(tmp_path_factory):
     res["du1"] = ddpm_train.main(cpu(unlearn, "du1"))
     ddpm_sample.main(cpu(sample, "ds1"))
     sd_train.main(cpu(sd, "sd1"))
+    res["prox1"] = sd_train.main(cpu(prox, "prox1"))
+    esd = ["esd", "--prompt", "a cat, a dog", "--iterations", "2",
+           "--ddim_steps", "4", "--config", str(cfg_path), "--ckpt_path",
+           str(ckpt), "--image_size", "64", "--lr", "1e-4"]
+    sd_train.main(cpu(esd, "esd1"))
     sd_generate_images.main(cpu(gen, "sg1", "--save_path"))
     launches = {
         "mask": ("generate_mask", [*mask, "--save_dir", str(tmp / "m2")]),
@@ -150,6 +176,14 @@ def runs(tmp_path_factory):
         "ddpm": ("ddpm_train", [*unlearn, "--save_dir", str(tmp / "du2")]),
         "sample": ("ddpm_sample", [*sample, "--save_dir", str(tmp / "ds2")]),
         "sd": ("sd_train", [*sd, "--save_dir", str(tmp / "sd2")]),
+        "sd_fsdp": ("sd_train", [*sd, "--fsdp", "--save_dir",
+                                 str(tmp / "sd_fsdp")]),
+        "prox_fsdp": ("sd_train", [*prox, "--fsdp", "--save_dir",
+                                   str(tmp / "prox_fsdp")]),
+        "cache_fsdp": ("sd_train", [*sd, "--cache_vae_moments", "--fsdp",
+                                    "--save_dir", str(tmp / "cache_fsdp")]),
+        "esd_fsdp": ("sd_train", [*esd, "--fsdp", "--save_dir",
+                                  str(tmp / "esd_fsdp")]),
         "gen": ("sd_generate_images", [*gen, "--save_path",
                                        str(tmp / "sg2")]),
     }
@@ -286,6 +320,53 @@ def test_sd_random_label_dp2(runs):
             assert torch.equal(a[k], b[k]), k
     d = _digests(runs["logs"]["sd"])
     assert set(d) == {"0", "1"} and d["0"] == d["1"], d
+
+
+def _sd_unets(tmp, a, b):
+    from salun_torch.ckpt import load_compvis_state_dict
+
+    a = load_compvis_state_dict(str(tmp / a / "compvis.ckpt"))
+    b = load_compvis_state_dict(str(tmp / b / "compvis.ckpt"))
+    assert set(a) == set(b)
+    return a, b
+
+
+@pytest.mark.parametrize("one, fsdp", [("sd1", "sd_fsdp"),
+                                       ("sd1", "cache_fsdp"),
+                                       ("esd1", "esd_fsdp")])
+def test_sd_random_label_dp2_fsdp(runs, one, fsdp):
+    """--fsdp: the bound of test_sd_random_label_dp2 against the
+    one-process run (random_label, cached or not; ESD, whose batch of 1
+    stays whole on both ranks, so FSDP divides the ranks' sum by 2); the
+    frozen VAE and CLIP untouched; the ranks' gathered U-Nets bitwise
+    equal (the CLI's digests)."""
+    tmp = runs["tmp"]
+    a, b = _sd_unets(tmp, one, fsdp)
+    keys = [k for k in a if k.startswith("model.diffusion_model.")]
+    _assert_params_match({k: a[k].numpy() for k in keys},
+                         {k: b[k].numpy() for k in keys},
+                         rtol=1e-4, atol=1e-5, frac=1e-4, max_abs=1e-4)
+    for k in a:
+        if k not in keys:
+            assert torch.equal(a[k], b[k]), k
+    log = runs["logs"][fsdp]
+    assert "--fsdp:" in log and "sharded over 2 ranks" in log
+    d = _digests(log)
+    assert set(d) == {"0", "1"} and d["0"] == d["1"], d
+
+
+def test_sd_proximal_dp2_fsdp_tau(runs):
+    """τ of the sharded bisection over the ranks' shards equals the
+    one-process sort's τ bitwise (printed with repr), as does the count
+    it pins."""
+    [shrink] = runs["prox1"]["shrinks"]
+    got = re.findall(r"proximal shrink: ratio (\d+) tau (\S+) pinned (\d+)",
+                     runs["logs"]["prox_fsdp"])
+    assert len(got) == 2, got  # one line a rank
+    for ratio, tau, pinned in got:
+        assert int(ratio) == shrink["ratio"]
+        assert float(tau) == shrink["tau"] > 0
+        assert int(pinned) >= int(ratio)
 
 
 def test_sd_generate_images_dp2(runs):

@@ -115,8 +115,11 @@ def test_generate_images_writes_the_flat_layout(chain):
     ["random_label", "--dp", "2"], ["random_label", "--fsdp"]],
     ids=" ".join)
 def test_unported_subcommands_and_flags_raise(argv):
-    """--fsdp is not ported, on any subcommand; --dp 2 raises ValueError
-    outside a torchrun launch of 2 processes (salun_torch.dist.context)."""
-    want = NotImplementedError if "--fsdp" in argv else ValueError
-    with pytest.raises(want):
-        sd_train.main(argv + ["--device", "cpu"])
+    """--dp 2 raises ValueError outside a torchrun launch of 2 processes
+    (salun_torch.dist.context), on any subcommand. --fsdp is ported and
+    acts only with --dp (alone it changes nothing, as in JAX), so its cases
+    run with --dp 2 and raise the same; tests/test_torch_dp_cli.py runs
+    --dp 2 --fsdp under torchrun."""
+    dp = [] if "--dp" in argv else ["--dp", "2"]
+    with pytest.raises(ValueError, match="torchrun"):
+        sd_train.main(argv + dp + ["--device", "cpu"])
