@@ -272,7 +272,25 @@ Phases, each of which fails the script (exit code 1) when it fails:
    run's) split over the ranks, bitwise the one-card sort's, both timed.
    K2/K3a/K3b at the shapes this runs ([8, N, Nk, D]) are held against
    plain in phase 3.
-9. A ``{"kernels": [...]}`` line (launches per path and in all, PLMS's
+9. The sequence-, expert- and pipeline-parallel layers, two ranks sharing
+   the card over gloo, TF32 off: 9a, in a torchrun launch of its own
+   before 7a's (a rank that crashes ends only it), the ring shift on CUDA
+   tensors: ``all_to_all_single`` with split sizes must be exact on both
+   ranks (the route ``salun_torch/dist/collectives.py`` sets), and what
+   ``batch_isend_irecv`` does is logged; then one call in phase 7a's
+   launch (``e24_work``), each layer on both ranks against its
+   one-process form on rank 0 within ``E24_TOL`` of max(1, max|·|):
+   9b ``ring_attention`` at the SD U-Net's level-1 self-attention at bs 2
+   ([16, 4096, 40], 2048 a rank): output and dq/dk/dv; 9c ``moe_apply``
+   at T 8,192, d 320, E 8, GELU experts of width 1,280, capacity
+   T/(p·E)·1.25: y, aux, the router's, experts' and x's gradients (the
+   tokens the sharded run drops left out of the one-process loss); 9d
+   ``pipeline_apply`` of two residual-MLP stages (d 1,280, hidden 5,120,
+   B 256, M 4, remat) against the stages in sequence: output and stage
+   gradients; 9e one 9b forward on rank 0 inside ``maybe_profile``: the
+   Chrome trace must hold a CUDA kernel event. No kernel launches on
+   these paths. Printed: each side's forward + backward ms.
+10. A ``{"kernels": [...]}`` line (launches per path and in all, PLMS's
    as ``sd_plms``; K1's
    ResNet-18 row counts the ResNet-18 paths, its vgg16_bn and ResNet-50
    rows their RL paths, its boundary_expanding row that call; K3a's and
@@ -438,6 +456,18 @@ FSDP_GRAD_TOL, SHARDED_NOISE = 1e-3, 1e-6
 # gradient as above (its row-parallel sums are split in two)
 TP_BS, TP_LOSS_TOL, TP_GRAD_TOL = 2, 1e-5, 1e-4
 OFFLOAD_STEPS = 3  # Adam steps on the full U-Net, offloaded and not
+# Phase 9, the sequence-, expert- and pipeline-parallel layers: two ranks
+# of phase 7a's launch share the card over gloo, TF32 off, each layer
+# against its one-process form on rank 0. Ring attention at the SD
+# U-Net's level-1 self-attention at bs 2 ([2 images × 8 heads, 4096, 40],
+# 2048 a rank); the switch MoE at its level-1 width and feed-forward (T
+# tokens, d, E experts, each a GELU MLP of width h) with capacity
+# T/(p·E)·1.25; two stages of the residual MLP (d, hidden, B, M), remat
+E24_RING = (16, 4096, 40)
+E24_MOE = (8192, 320, 8, 1280)
+E24_PIPE = (1280, 5120, 256, 4)
+E24_TOL = 1e-4  # × max(1, max|one-process|): fp32 sums in other orders
+E24_REPS = 3  # timed forward + backward runs a side, after one warm-up
 
 # SD chain: configs/sd/v1-inference.yaml at full width, seeded weights;
 # cut in count (16 forget images instead of 64, 2 epochs instead of 5,
@@ -3546,6 +3576,8 @@ def dp_child(args: list) -> None:
         t0 = time.perf_counter()
         if call["module"] == "tp":
             result = tp_work(call["argv"][0], rec)
+        elif call["module"] == "e24":
+            result = e24_work(rec)
         else:
             result = importlib.import_module(call["module"]).main(
                 call["argv"])
@@ -3766,7 +3798,8 @@ def dp_launch(what: str, calls: list) -> tuple:
     for old in base.glob(f"{out.name}.*.rank*.json"):
         old.unlink()
     spec = [{"module": c[0],
-             "argv": list(c[1]) + ([] if c[0] == "tp" else ["--dp", "2"]),
+             "argv": list(c[1]) + ([] if c[0] in ("tp", "e24")
+                                   else ["--dp", "2"]),
              "hooks": c[2] if len(c) > 2 else None} for c in calls]
     calls_file = base / f"{out.name}.calls.json"
     calls_file.write_text(json.dumps(spec))
@@ -3878,9 +3911,9 @@ def dp_classification(device) -> dict:
                         "--unlearn_lr", str(LR),
                         "--unlearn_epochs", str(EPOCHS)]
     t0 = time.perf_counter()
-    (ranks, rl_ranks), digests = dp_launch("ResNet-18", [
+    (ranks, rl_ranks, e24_ranks), digests = dp_launch("ResNet-18", [
         ("salun_torch.cli.generate_mask", common),
-        ("salun_torch.cli.main_random", rl_args)])
+        ("salun_torch.cli.main_random", rl_args), ("e24", [])])
     by_path = _dp_launches("ResNet-18 generate_mask", ranks,
                            dict.fromkeys(_sd_kernels(), 0))
     one, two = (load_mask(str(d / "with_0.5.pt")) for d in (out_dir, dp_dir))
@@ -3938,7 +3971,7 @@ def dp_classification(device) -> dict:
     dp_ms = 1e3 * res["seconds"]["unlearn"] / steps
     _dp_report("ResNet-18 RL", ranks, steps, one_ms, dp_ms)
     log(f"phase 7a (ResNet-18 --dp 2): {time.perf_counter() - t0:.3f} s")
-    return by_path
+    return by_path, e24_ranks
 
 
 def dp_ddpm(device) -> dict:
@@ -4727,9 +4760,371 @@ def sharded_state_paths(device, ckpt: Path, mask_file: Path, cfg,
     return by_path
 
 
+# ------------------------------------------------------------------ phase 9
+
+
+def shift_probe_child(out: str) -> None:
+    """Phase 9a, one rank of ``torchrun --nproc_per_node 2 chip_smoke.py
+    --shift-probe <out>``: the two ways to shift a CUDA tensor one rank
+    round the ring over gloo (``all_to_all_single`` with split sizes, then
+    ``batch_isend_irecv``), each against its exact value and written to
+    ``<out>.rank<r>.json`` as soon as it is known, so that a rank which
+    the second kills leaves the first on file."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from salun_torch.dist import multihost
+
+    backend = multihost.initialize("cuda")
+    r, n = dist.get_rank(), dist.get_world_size()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rec = {"rank": r, "backend": backend}
+    path = Path(f"{out}.rank{r}.json")
+    x = torch.arange(6.0, device=dev) + 10 * r
+    want = torch.arange(6.0) + 10 * ((r - 1) % n)
+    split_in = [x.numel() if j == (r + 1) % n else 0 for j in range(n)]
+    split_out = [x.numel() if j == (r - 1) % n else 0 for j in range(n)]
+    for name in ("all_to_all_single", "batch_isend_irecv"):
+        got = torch.empty_like(x)
+        try:
+            if name == "all_to_all_single":
+                dist.all_to_all_single(got, x, split_out, split_in)
+            else:
+                for work in dist.batch_isend_irecv([
+                        dist.P2POp(dist.isend, x, (r + 1) % n),
+                        dist.P2POp(dist.irecv, got, (r - 1) % n)]):
+                    work.wait()
+            torch.cuda.synchronize()
+            rec[name] = bool(torch.equal(got.cpu(), want))
+        except Exception as e:  # recorded; the parent decides
+            rec[name] = repr(e)
+        path.write_text(json.dumps(rec))
+    multihost.shutdown()
+
+
+def shift_probe() -> dict:
+    """Phase 9a: :func:`shift_probe_child` in a torchrun launch of its own
+    (a crash there ends only that launch); returns each rank's record,
+    with the launch's exit code."""
+    import os
+
+    base = WORK / "e24"
+    base.mkdir(parents=True, exist_ok=True)
+    out = base / "shift_probe"
+    for old in base.glob("shift_probe.rank*.json"):
+        old.unlink()
+    env = dict(os.environ, OMP_NUM_THREADS="4")
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", str(ROOT / "chip_smoke.py"),
+           "--shift-probe", str(out)]
+    t0 = time.perf_counter()
+    try:
+        p = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                           text=True, timeout=120)
+        code, text = p.returncode, p.stdout + p.stderr
+    except subprocess.TimeoutExpired as e:
+        code, text = "timeout", f"{e.stdout or ''}{e.stderr or ''}"
+    out.with_suffix(".log").write_text(str(text))
+    recs = {}
+    for r in (0, 1):
+        path = base / f"shift_probe.rank{r}.json"
+        recs[r] = json.loads(path.read_text()) if path.exists() else None
+    why = [line.strip() for line in str(text).splitlines()
+           if "what()" in line or "terminate called" in line
+           or "Signal" in line][:3]
+    return {"exit": code, "seconds": time.perf_counter() - t0,
+            "ranks": recs, "why": why, "tail": str(text)[-2000:]}
+
+
+def e24_work(rec: dict) -> dict:
+    """Phase 9's call in a ``--dp-child`` rank (the group is up), TF32 off,
+    each layer on both ranks and then on rank 0 alone in its one-process
+    form (no mesh) on the whole input, which it broadcasts; each rank
+    holds its share against it (max |Δ| over max(1, max|one-process|)):
+
+    - 9b ``ring_attention`` over ``make_mesh(2, 1)``'s data axis at
+      ``E24_RING``, half the sequence a rank, loss Σout²: the output and
+      the gradients of q, k and v;
+    - 9c ``moe_apply`` over the same axis at ``E24_MOE``, capacity
+      T/(p·E)·1.25, loss Σy² + 0.01·aux: y, aux and the gradients of the
+      router, the experts and x. The one-process form takes every token
+      (its capacity the largest expert's load) and counts only the tokens
+      the sharded run kept, which the function's own routing arithmetic
+      names here;
+    - 9d ``pipeline_apply`` of two stages over ``make_mesh(1, 2)``'s model
+      axis at ``E24_PIPE``, remat, loss mean((out − y)²), against the
+      stages applied in sequence: the output and each rank's stage
+      gradients;
+    - 9e one 9b forward on rank 0 inside ``maybe_profile``: the trace
+      file's events and CUDA kernel events.
+
+    Each side's forward + backward is timed (median of ``E24_REPS`` after
+    one warm-up; both ranks at once on the one card). Returns the
+    record's numbers; TF32 is as it was at the end."""
+    import contextlib
+
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from salun_torch.dist import (expert_sharding, moe_apply, pipeline_apply,
+                                  ring_attention, stack_stage_params,
+                                  stage_sharding)
+    from salun_torch.dist.mesh import make_mesh
+    from salun_torch.utils import maybe_profile, set_tf32, tf32_settings
+
+    cuda = torch.cuda.is_available()
+    dev = torch.device("cuda", torch.cuda.current_device()) if cuda \
+        else torch.device("cpu")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def ms_of(fn):
+        fn()
+        times = []
+        for _ in range(E24_REPS):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return sorted(times)[len(times) // 2]
+
+    def from_rank0(tensors):
+        """Rank 0's ``tensors`` on both ranks (the others pass the same
+        shapes), in place."""
+        for t in tensors:
+            dist.broadcast(t, src=0)
+
+    def err(got, want):
+        return float((got.float() - want.float()).abs().max()) / max(
+            1.0, float(want.abs().max()))
+
+    def leaves(tensors):
+        return [t.detach().clone().requires_grad_() for t in tensors]
+
+    before = tf32_settings()
+    set_tf32(False)
+    dmesh = make_mesh(data=2, model=1, device=dev)
+    pmesh = make_mesh(data=1, model=2, device=dev)
+    rank = dmesh.rank
+    gen = torch.Generator(device=dev).manual_seed(24)
+
+    def rn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen, device=dev)
+
+    # 9b
+    b, n, c = E24_RING
+    qkv = [rn(b, n, c) for _ in range(3)]
+    rows = dmesh.rows(n)
+
+    def ring_step(inputs, mesh):
+        ins = leaves(inputs)
+        out = ring_attention(*ins, mesh)
+        (out ** 2).sum().backward()
+        return [out.detach()] + [t.grad for t in ins]
+
+    shard = [t[:, rows] for t in qkv]
+    got = ring_step(shard, dmesh)
+    ring = {"ms": ms_of(lambda: ring_step(shard, dmesh)),
+            "shape": [b, n, c], "block": rows.stop - rows.start}
+    want = ring_step(qkv, None) if rank == 0 else [
+        torch.empty_like(t) for t in [qkv[0]] * 4]
+    if rank == 0:
+        ring["one_ms"] = ms_of(lambda: ring_step(qkv, None))
+    from_rank0(want)
+    ring["err"] = dict(zip(("out", "dq", "dk", "dv"), (
+        err(g, w[:, rows]) for g, w in zip(got, want))))
+    rec["ring"] = ring
+    del got, want
+
+    # 9e: one 9b forward on rank 0 in maybe_profile (rank 1 joins its
+    # collectives unprofiled)
+    trace_dir = WORK / "e24" / "trace"
+    if rank == 0:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    ctx = maybe_profile(str(trace_dir)) if rank == 0 \
+        else contextlib.nullcontext()
+    with ctx as path, torch.no_grad():
+        ring_attention(*shard, dmesh)
+        sync()
+    if rank == 0:
+        events = json.loads(Path(path).read_text())["traceEvents"]
+        kern = [e for e in events if e.get("cat") == "kernel"]
+        names = sorted({e["name"] for e in kern}, key=len)
+        rec["trace"] = {"path": str(path), "bytes": Path(path).stat().st_size,
+                        "events": len(events), "kernel_events": len(kern),
+                        "kernel_us": sum(e.get("dur", 0) for e in kern),
+                        "kernels": names[:4]}
+    del qkv, shard
+
+    # 9c
+    t_all, d, n_exp, hid = E24_MOE
+    x = rn(t_all, d)
+    gate_w = rn(d, n_exp, scale=d ** -0.5)
+    experts = {"w1": rn(n_exp, d, hid, scale=d ** -0.5),
+               "w2": rn(n_exp, hid, d, scale=hid ** -0.5)}
+    cap = int(t_all / (2 * n_exp) * 1.25)
+    esl, trows = expert_sharding(dmesh, n_exp), dmesh.rows(t_all)
+
+    def expert(params, h):
+        return F.gelu(h @ params["w1"]) @ params["w2"]
+
+    def moe_step(mesh, ep, xs, capacity, keep=None):
+        names = list(ep)
+        *ps, g, xs = leaves([ep[k] for k in names] + [gate_w, xs])
+        y, aux = moe_apply(expert, dict(zip(names, ps)), g, xs, mesh,
+                           capacity=capacity)
+        yk = y if keep is None else y * keep[:, None]
+        ((yk ** 2).sum() + 0.01 * aux).backward()
+        return [y.detach(), aux.detach(), g.grad, xs.grad] + [
+            p.grad for p in ps]
+
+    with torch.no_grad():  # which tokens each shard keeps, and the loads
+        idx = torch.cat([torch.softmax(xc @ gate_w, -1).argmax(-1)
+                         for xc in x.chunk(2)])  # each shard's own matmul
+        onehot = F.one_hot(idx, n_exp).float()
+        pos = torch.cat([(torch.cumsum(h, 0) * h).sum(-1) - 1
+                         for h in onehot.chunk(2)])
+        keep = (pos < cap).float()
+        load = int(onehot.sum(0).max())
+    local = {k: v[esl] for k, v in experts.items()}
+    got = moe_step(dmesh, local, x[trows], cap)
+    moe = {"ms": ms_of(lambda: moe_step(dmesh, local, x[trows], cap)),
+           "shape": [t_all, d, n_exp, hid], "capacity": cap,
+           "dropped": int(t_all - keep.sum()), "load_max": load}
+    want = moe_step(None, experts, x, load, keep) if rank == 0 else [
+        torch.empty_like(t) for t in (x, gate_w.new_zeros(()), gate_w, x,
+                                      experts["w1"], experts["w2"])]
+    if rank == 0:
+        moe["one_ms"] = ms_of(lambda: moe_step(None, experts, x, load,
+                                                 keep))
+    from_rank0(want)
+    want[0] = want[0] * keep[:, None]
+    moe["err"] = {
+        "y": err(got[0], want[0][trows]), "aux": err(got[1], want[1]),
+        "d_gate": err(got[2], want[2]), "dx": err(got[3], want[3][trows]),
+        "d_w1": err(got[4], want[4][esl]), "d_w2": err(got[5], want[5][esl])}
+    moe["aux"] = [float(got[1]), float(want[1])]
+    rec["moe"] = moe
+    del got, want, x, experts, local
+
+    # 9d
+    d, hid, bs, micro = E24_PIPE
+    stages = [{"w1": rn(d, hid, scale=d ** -0.5), "b1": rn(hid, scale=0.1),
+               "w2": rn(hid, d, scale=hid ** -0.5)} for _ in range(2)]
+    xp, yp = rn(bs, d), rn(bs, d)
+    stacked = stack_stage_params(stages)
+    ssl = stage_sharding(pmesh, 2)
+
+    def mlp(params, h):
+        return h + F.gelu(h @ params["w1"] + params["b1"]) @ params["w2"]
+
+    def pipe_step():
+        names = list(stacked)
+        params = dict(zip(names, leaves([stacked[k][ssl] for k in names])))
+        out = pipeline_apply(mlp, params, xp, pmesh, num_microbatches=micro)
+        ((out - yp) ** 2).mean().backward()
+        return [out.detach()] + [params[k].grad for k in names]
+
+    def seq_step():
+        names = list(stacked)
+        ps = [dict(zip(names, leaves([s[k] for k in names])))
+              for s in stages]
+        h = xp
+        for p in ps:
+            h = mlp(p, h)
+        ((h - yp) ** 2).mean().backward()
+        return [h.detach()] + [torch.stack([p[k].grad for p in ps])
+                               for k in names]
+
+    got = pipe_step()
+    pipe = {"ms": ms_of(pipe_step), "shape": [d, hid, bs, micro]}
+    want = seq_step() if rank == 0 else [torch.empty_like(xp)] + [
+        torch.empty_like(stacked[k]) for k in stacked]
+    if rank == 0:
+        pipe["one_ms"] = ms_of(seq_step)
+    from_rank0(want)
+    pipe["err"] = {"out": err(got[0], want[0])}
+    for k, g, w in zip(stacked, got[1:], want[1:]):
+        pipe["err"][f"d_{k}"] = err(g, w[ssl])
+    pipe["stage"] = ssl.start
+    rec["pipeline"] = pipe
+    set_tf32(before["matmul_allow_tf32"])
+    return {"tf32": tf32_settings()}
+
+
+def parallel_layers_paths(probe: dict, ranks: list) -> None:
+    """Phase 9's gates and lines: 9a's probe (its own launch, before 7a's)
+    and the records of the call in 7a's launch (:func:`e24_work`)."""
+    recs = probe["ranks"]
+    a2a = [r and r.get("all_to_all_single") for r in recs.values()]
+    p2p = [r and r.get("batch_isend_irecv", "no record: the rank died")
+           for r in recs.values()]
+    if a2a != [True, True]:
+        fail(f"9a all_to_all_single with split sizes over gloo on CUDA "
+             f"tensors: {a2a} (the ring shift's route); launch exit "
+             f"{probe['exit']}:\n{probe['tail']}")
+    log(f"9a ring shift on CUDA tensors over gloo (two ranks on the card, "
+        f"a launch of its own, {probe['seconds']:.1f} s): "
+        f"all_to_all_single with split sizes exact on both ranks (the "
+        f"route, set in dist/collectives.py); batch_isend_irecv {p2p}, "
+        f"launch exit {probe['exit']} {probe['why']}")
+    for rec in ranks:
+        if any(rec["launches"].values()):
+            fail(f"9 rank {rec['rank']}: kernel launches {rec['launches']} "
+                 f"on a path that runs none")
+        for part in ("ring", "moe", "pipeline"):
+            worst = max(rec[part]["err"].values())
+            if not worst <= E24_TOL:
+                fail(f"9 {part} rank {rec['rank']}: {rec[part]['err']} "
+                     f"against the one-process form (bound {E24_TOL})")
+    r0, r1 = ranks
+    ring, moe, pipe = r0["ring"], r0["moe"], r0["pipeline"]
+
+    def worst(part):
+        return max(max(r[part]["err"].values()) for r in ranks)
+
+    log(f"9b ring_attention {ring['shape']} ({ring['block']} a rank over "
+        f"the data axis, TF32 off, {card_name_and_limit()}): output and "
+        f"dq/dk/dv within "
+        f"{worst('ring'):.3e} of the one-process form (bound {E24_TOL}; "
+        f"rank 0 {ring['err']}); forward + backward {ring['ms']:.3f} / "
+        f"{r1['ring']['ms']:.3f} ms on ranks 0 / 1 at once, one process "
+        f"{ring['one_ms']:.3f} ms")
+    log(f"9c moe_apply T, d, E, hidden {moe['shape']}, capacity "
+        f"{moe['capacity']} (largest load {moe['load_max']} of "
+        f"{moe['shape'][0]}; {moe['dropped']} tokens dropped by the "
+        f"sharded run): y, aux and the gradients within {worst('moe'):.3e} "
+        f"of the one-process form (bound {E24_TOL}; rank 0 {moe['err']}; "
+        f"aux {moe['aux']}); forward + backward {moe['ms']:.3f} / "
+        f"{r1['moe']['ms']:.3f} ms, one process {moe['one_ms']:.3f} ms")
+    log(f"9d pipeline_apply d, hidden, B, M {pipe['shape']} (2 stages, "
+        f"remat): output and each rank's stage gradients within "
+        f"{worst('pipeline'):.3e} of the stages in sequence (bound "
+        f"{E24_TOL}; rank 0 {pipe['err']}); forward + backward "
+        f"{pipe['ms']:.3f} / {r1['pipeline']['ms']:.3f} ms, in sequence "
+        f"{pipe['one_ms']:.3f} ms")
+    tr = r0["trace"]
+    if tr["kernel_events"] < 1:
+        fail(f"9e maybe_profile's trace has no CUDA kernel event: {tr}")
+    log(f"9e maybe_profile around one 9b forward on rank 0: "
+        f"{tr['path']} ({tr['bytes']} bytes, {tr['events']} events, "
+        f"{tr['kernel_events']} CUDA kernel events, {tr['kernel_us']:.1f} "
+        f"µs of kernels; e.g. {tr['kernels']}); the call "
+        f"{r0['seconds']:.1f} s of 7a's launch")
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--dp-child"]:
         dp_child(sys.argv[2:])
+        return
+    if sys.argv[1:2] == ["--shift-probe"]:  # phase 9a's ranks
+        shift_probe_child(sys.argv[2])
         return
     try:
         import torch
@@ -4768,7 +5163,10 @@ def main() -> None:
 
     # the main paths through the CLIs (TF32 on), each counted on its own
     by_path = {"classification": main_path(device, k1_ms[K1_NAME])}
-    by_path.update(dp_classification(device))
+    probe = shift_probe()
+    cls_paths, e24_ranks = dp_classification(device)
+    by_path.update(cls_paths)
+    parallel_layers_paths(probe, e24_ranks)
     by_path.update(methods_paths(device, k1_ms[K1_NAME]))
     by_path.update(train_resume_path(device))
     by_path.update(cifar100_arch_paths(device, k1_ms))

@@ -3,8 +3,9 @@
 
 - ``train`` (DDPM/train_classifier.py): a ResNet-34 (ImageNet stem) at
   224×224 on CIFAR-10. Each batch is resized to 224 (bilinear,
-  half-pixel centres, antialiased as ``jax.image.resize``) from [0, 1] and
-  scaled back by 255, then the train step crops and flips it and takes one
+  half-pixel centres, antialiased as ``jax.image.resize``) in [0, 1], the
+  range ``eval`` feeds (the JAX package scales the train batch back to
+  [0, 255]), then the train step crops and flips it and takes one
   Adam step with L2 5e-4 added to the gradient: the body at ``--lr``, the
   ``fc`` head at ``--lr`` × 10 (train_classifier.py:138-148).
   ``--freeze_layers`` trains the head only; ``--init_weights`` starts the
@@ -109,8 +110,9 @@ def train(args, source: Optional[Callable] = None) -> dict:
     for epoch in range(args.epochs):
         for b in loader:
             batch = to_device(b, device)
+            # [0, 1], as the reference's ToTensor gives train and eval
             batch["image"] = resize_batch(
-                batch["image"].to(torch.float32) / 255.0) * 255.0
+                batch["image"].to(torch.float32) / 255.0)
             m = train_step(model, opt, batch,
                            source(batch["image"].shape[0]))
             steps += 1

@@ -1,5 +1,7 @@
 """Workers of the sharded-state tests (``test_torch_{fsdp,tp,ckpt_sharded,
-host_offload}.py``, ``test_torch_dist.py``): two ranks of a gloo group on
+host_offload}.py``, ``test_torch_dist.py``) and of the sequence-, expert-
+and pipeline-parallel ones (their cases in ``_parallel_workers.py``, the
+2-D mesh cases on four ranks): two ranks of a gloo group on
 the CPU (spawned, no JAX), each case run against its one-process meaning
 on the tiny SD model of ``tests/_torch_port.sd_tiny_jax`` (U-Net ch 32, 2
 heads, context 24; VAE ch 32; CLIP width 24, 2 layers, 8 tokens; 64×64
@@ -355,15 +357,20 @@ def case_offload(mesh, out):
                                                  fsdp.local(t)))
 
 
-def run(case: str, rank: int, port: int, queue, tmp: str = "") -> None:
+def run(case: str, rank: int, port: int, queue, tmp: str = "",
+        world: int = 2) -> None:
+    from _parallel_workers import CASES
+
     torch.set_num_threads(1)
     os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-                      WORLD_SIZE="2", RANK=str(rank), LOCAL_RANK=str(rank),
-                      LOCAL_WORLD_SIZE="2")
+                      WORLD_SIZE=str(world), RANK=str(rank),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
     out = {"rank": rank}
     try:
-        mesh = dist_ctx.mesh_from_flags(2, "cpu")
-        if case == "fsdp":
+        mesh = dist_ctx.mesh_from_flags(world, "cpu")
+        if case in CASES:
+            CASES[case](out)
+        elif case == "fsdp":
             case_fsdp(mesh, out)
         elif case == "offload":
             case_offload(mesh, out)
@@ -385,8 +392,10 @@ def run(case: str, rank: int, port: int, queue, tmp: str = "") -> None:
         queue.put(out)
 
 
-def spawn(case: str, tmp: str = "", timeout: float = 240) -> list:
-    """Both ranks' results of ``run(case)``, rank 0 first."""
+def spawn(case: str, tmp: str = "", timeout: float = 240,
+          world: int = 2) -> list:
+    """Every rank's result of ``run(case)`` in a gloo group of ``world``
+    ranks, rank 0 first."""
     import multiprocessing as mp
     import socket
 
@@ -395,8 +404,8 @@ def spawn(case: str, tmp: str = "", timeout: float = 240) -> list:
         port = s.getsockname()[1]
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
-    procs = [ctx.Process(target=run, args=(case, r, port, queue, tmp))
-             for r in range(2)]
+    procs = [ctx.Process(target=run, args=(case, r, port, queue, tmp, world))
+             for r in range(world)]
     for p in procs:
         p.start()
     try:
