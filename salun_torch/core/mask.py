@@ -26,6 +26,7 @@ from typing import Callable, Iterable, Sequence
 import torch
 
 from salun_torch.dist import context as dist_ctx
+from salun_torch.utils.metrics import span
 
 # The reference sweep (generate_mask.py:50).
 DEFAULT_THRESHOLDS = (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0)
@@ -43,9 +44,10 @@ def accumulate_saliency(loss_fn: Callable, params: Sequence[torch.Tensor],
     acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
            for p in params]
     for batch in batches:
-        grads = torch.autograd.grad(loss_fn(batch), params)
-        for a, g in zip(acc, grads):
-            a.add_(g.to(torch.float32))
+        with span("mask.grad"):
+            grads = torch.autograd.grad(loss_fn(batch), params)
+            for a, g in zip(acc, grads):
+                a.add_(g.to(torch.float32))
     dist_ctx.all_reduce_(acc)
     return [a.abs_() for a in acc]
 
@@ -53,10 +55,12 @@ def accumulate_saliency(loss_fn: Callable, params: Sequence[torch.Tensor],
 def saliency_ranks(abs_saliency: Sequence[torch.Tensor]) -> torch.Tensor:
     """Rank of every coordinate of the concatenation (0 = largest), ties
     in ascending flat order: one stable descending sort."""
-    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in abs_saliency])
-    order = torch.sort(flat, descending=True, stable=True).indices
-    ranks = torch.empty_like(order)
-    ranks[order] = torch.arange(order.numel(), device=order.device)
+    with span("mask.sort", elements=sum(t.numel() for t in abs_saliency)):
+        flat = torch.cat([t.reshape(-1).to(torch.float32)
+                          for t in abs_saliency])
+        order = torch.sort(flat, descending=True, stable=True).indices
+        ranks = torch.empty_like(order)
+        ranks[order] = torch.arange(order.numel(), device=order.device)
     return ranks
 
 
@@ -86,4 +90,6 @@ def generate_masks(abs_saliency: Sequence[torch.Tensor],
                    thresholds: Sequence[float] = DEFAULT_THRESHOLDS) -> dict:
     """``{threshold: [mask per tensor]}`` from one sort."""
     ranks = saliency_ranks(abs_saliency)
-    return {t: threshold_mask(abs_saliency, t, ranks) for t in thresholds}
+    with span("mask.threshold"):
+        return {t: threshold_mask(abs_saliency, t, ranks)
+                for t in thresholds}

@@ -31,6 +31,7 @@ from salun_torch.core.masked_opt import clip_by_global_norm, mask_grads
 from salun_torch.data.ddpm_data import random_hflip
 from salun_torch.data.loader import to_float
 from salun_torch.dist import context as dist_ctx
+from salun_torch.utils.metrics import span
 
 from .ema import ema_init, ema_update
 from .losses import eps_mse
@@ -121,10 +122,11 @@ def make_optimizer(model: torch.nn.Module, cfg: DDPMTrainConfig,
 def _batch_images(batch: dict, device) -> tuple:
     """Host batch (``image`` NHWC uint8 or [0,1] float, ``label``) → (float
     NCHW images in [0,1], int64 labels) on device."""
-    img = torch.from_numpy(np.ascontiguousarray(batch["image"]))
-    label = torch.from_numpy(np.asarray(batch["label"], np.int64))
-    return (to_float(img.to(device).permute(0, 3, 1, 2).contiguous()),
-            label.to(device))
+    with span("step.inputs"):
+        img = torch.from_numpy(np.ascontiguousarray(batch["image"]))
+        label = torch.from_numpy(np.asarray(batch["label"], np.int64))
+        return (to_float(img.to(device).permute(0, 3, 1, 2).contiguous()),
+                label.to(device))
 
 
 def saliency_from_eps_loss(eps_fn, params: Sequence[torch.Tensor],
@@ -148,25 +150,28 @@ def saliency_from_eps_loss(eps_fn, params: Sequence[torch.Tensor],
     acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
            for p in params]
     for batch in batches:
-        x, c = _batch_images(batch, device)
-        n = x.shape[0]
-        if random_flip:
-            x = random_hflip(x, batch.get("flips"), generator=generator)
-        t = batch.get("t")
-        t = (antithetic_timesteps(n, T, generator=generator, device=device)
-             if t is None else torch.as_tensor(t).to(device).long())
-        e = batch.get("e")
-        e = (torch.randn(x.shape, generator=generator, device=device)
-             if e is None else torch.as_tensor(e).to(device, torch.float32))
-        xt = q_sample(data_transform(x), t, e, schedule)
-        xt, t, c, e = dist_ctx.ingest((xt, t, c, e))
-        loss = eps_mse(e, eps_fn(xt, t, c)) * dist_ctx.share(n)
-        grads = torch.autograd.grad(loss, params)
-        if dist_ctx.rows(n) is not None:
-            dist_ctx.all_reduce_(grads)
-        grads = clip_by_global_norm(grads, grad_clip)
-        for a, g in zip(acc, grads):
-            a.add_(g.to(torch.float32))
+        with span("mask.grad"):
+            x, c = _batch_images(batch, device)
+            n = x.shape[0]
+            if random_flip:
+                x = random_hflip(x, batch.get("flips"), generator=generator)
+            t = batch.get("t")
+            t = (antithetic_timesteps(n, T, generator=generator,
+                                      device=device)
+                 if t is None else torch.as_tensor(t).to(device).long())
+            e = batch.get("e")
+            e = (torch.randn(x.shape, generator=generator, device=device)
+                 if e is None
+                 else torch.as_tensor(e).to(device, torch.float32))
+            xt = q_sample(data_transform(x), t, e, schedule)
+            xt, t, c, e = dist_ctx.ingest((xt, t, c, e))
+            loss = eps_mse(e, eps_fn(xt, t, c)) * dist_ctx.share(n)
+            grads = torch.autograd.grad(loss, params)
+            if dist_ctx.rows(n) is not None:
+                dist_ctx.all_reduce_(grads)
+            grads = clip_by_global_norm(grads, grad_clip)
+            for a, g in zip(acc, grads):
+                a.add_(g.to(torch.float32))
     return generate_masks([a.abs_() for a in acc], thresholds)
 
 
@@ -216,16 +221,22 @@ class DDPMRunner:
                 (generator,) = rest
             sharded = dist_ctx.step_sharded(*(len(b["label"])
                                               for b in batches))
-            optimizer.zero_grad()
-            loss = loss_fn(model, *batches, generator=generator, draws=draws)
-            loss.backward()
-            if sharded:
-                dist_ctx.all_reduce_grads(optimizer.params)
-                (loss,) = dist_ctx.sum_scalars(loss.detach())
-                loss = loss.to(torch.float32)
-            optimizer.step()
-            if shadow is not None:
-                ema_update(model, shadow, self.cfg.ema_rate)
+            with span("step", rows=sum(len(b["label"]) for b in batches)):
+                with span("step.zero_grad"):
+                    optimizer.zero_grad()
+                with span("step.forward"):
+                    loss = loss_fn(model, *batches, generator=generator,
+                                   draws=draws)
+                with span("step.backward"):
+                    loss.backward()
+                    if sharded:
+                        dist_ctx.all_reduce_grads(optimizer.params)
+                        (loss,) = dist_ctx.sum_scalars(loss.detach())
+                        loss = loss.to(torch.float32)
+                with span("step.optimizer"):
+                    optimizer.step()
+                if shadow is not None:
+                    ema_update(model, shadow, self.cfg.ema_rate)
             return loss.detach()
 
         step.shadow = shadow

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from salun_torch.dist import context as dist_ctx
+from salun_torch.utils.metrics import span
 
 from .schedules import DiffusionSchedule
 from .unet import ConditionalUNet, cfg_eps
@@ -73,15 +74,17 @@ def generalized_steps(eps_fn: Callable, x: torch.Tensor, seq: Sequence[int],
     x0_t = None
     xs, x0s = [], []
     for i, (t, t_next) in enumerate(_seq_pairs(seq)):
-        at = _alpha(schedule, n, t, x.device)
-        at_next = (_alpha(schedule, n, t_next, x.device) if t_next >= 0
-                   else torch.full_like(at, final_alpha_bar))
-        et = eps_fn(x, torch.full((n,), float(t), device=x.device))
-        x0_t = (x - et * torch.sqrt(1.0 - at)) / torch.sqrt(at)
-        c1 = eta * torch.sqrt((1 - at / at_next) * (1 - at_next) / (1 - at))
-        c2 = torch.sqrt((1 - at_next) - c1 ** 2)
-        z = _step_noise(noise, i, x, generator)
-        x = torch.sqrt(at_next) * x0_t + c1 * z + c2 * et
+        with span("sample.transition"):
+            at = _alpha(schedule, n, t, x.device)
+            at_next = (_alpha(schedule, n, t_next, x.device) if t_next >= 0
+                       else torch.full_like(at, final_alpha_bar))
+            et = eps_fn(x, torch.full((n,), float(t), device=x.device))
+            x0_t = (x - et * torch.sqrt(1.0 - at)) / torch.sqrt(at)
+            c1 = eta * torch.sqrt((1 - at / at_next) * (1 - at_next)
+                                  / (1 - at))
+            c2 = torch.sqrt((1 - at_next) - c1 ** 2)
+            z = _step_noise(noise, i, x, generator)
+            x = torch.sqrt(at_next) * x0_t + c1 * z + c2 * et
         if return_trajectory:
             xs.append(x)
             x0s.append(x0_t)
@@ -99,17 +102,18 @@ def ddpm_steps(eps_fn: Callable, x: torch.Tensor, seq: Sequence[int],
     x0 = None
     xs, x0s = [], []
     for i, (t, t_next) in enumerate(_seq_pairs(seq)):
-        at = _alpha(schedule, n, t, x.device)
-        atm1 = _alpha(schedule, n, t_next, x.device)
-        beta_t = 1.0 - at / atm1
-        e = eps_fn(x, torch.full((n,), float(t), device=x.device))
-        x0 = torch.sqrt(1.0 / at) * x - torch.sqrt(1.0 / at - 1.0) * e
-        x0 = torch.clamp(x0, -1.0, 1.0)
-        mean = (torch.sqrt(atm1) * beta_t * x0
-                + torch.sqrt(1.0 - beta_t) * (1.0 - atm1) * x) / (1.0 - at)
-        z = _step_noise(noise, i, x, generator)
-        mask = 1.0 if t > 0 else 0.0
-        x = mean + mask * torch.exp(0.5 * torch.log(beta_t)) * z
+        with span("sample.transition"):
+            at = _alpha(schedule, n, t, x.device)
+            atm1 = _alpha(schedule, n, t_next, x.device)
+            beta_t = 1.0 - at / atm1
+            e = eps_fn(x, torch.full((n,), float(t), device=x.device))
+            x0 = torch.sqrt(1.0 / at) * x - torch.sqrt(1.0 / at - 1.0) * e
+            x0 = torch.clamp(x0, -1.0, 1.0)
+            mean = (torch.sqrt(atm1) * beta_t * x0 + torch.sqrt(
+                1.0 - beta_t) * (1.0 - atm1) * x) / (1.0 - at)
+            z = _step_noise(noise, i, x, generator)
+            mask = 1.0 if t > 0 else 0.0
+            x = mean + mask * torch.exp(0.5 * torch.log(beta_t)) * z
         if return_trajectory:
             xs.append(x)
             x0s.append(x0)
@@ -144,21 +148,22 @@ def plms_steps(eps_fn: Callable, x: torch.Tensor, seq: Sequence[int],
     hist = []  # the last eps values, newest first
     pred_x0 = None
     for t, t_next in _seq_pairs(seq):
-        at, a_prev = alpha(t), alpha(t_next)
-        e_t = eps_fn(x, torch.full((n,), float(t), device=x.device))
-        if not hist:  # plms.py:363-367
-            x_boot, _ = x_prev_from(e_t, x, at, a_prev)
-            e_next = eps_fn(x_boot, torch.full((n,), float(t_next),
-                                               device=x.device))
-            e_prime = (e_t + e_next) / 2.0
-        elif len(hist) == 1:  # plms.py:368-379
-            e_prime = (3 * e_t - hist[0]) / 2.0
-        elif len(hist) == 2:
-            e_prime = (23 * e_t - 16 * hist[0] + 5 * hist[1]) / 12.0
-        else:
-            e_prime = (55 * e_t - 59 * hist[0] + 37 * hist[1]
-                       - 9 * hist[2]) / 24.0
-        x, pred_x0 = x_prev_from(e_prime, x, at, a_prev)
+        with span("sample.transition"):
+            at, a_prev = alpha(t), alpha(t_next)
+            e_t = eps_fn(x, torch.full((n,), float(t), device=x.device))
+            if not hist:  # plms.py:363-367
+                x_boot, _ = x_prev_from(e_t, x, at, a_prev)
+                e_next = eps_fn(x_boot, torch.full((n,), float(t_next),
+                                                   device=x.device))
+                e_prime = (e_t + e_next) / 2.0
+            elif len(hist) == 1:  # plms.py:368-379
+                e_prime = (3 * e_t - hist[0]) / 2.0
+            elif len(hist) == 2:
+                e_prime = (23 * e_t - 16 * hist[0] + 5 * hist[1]) / 12.0
+            else:
+                e_prime = (55 * e_t - 59 * hist[0] + 37 * hist[1]
+                           - 9 * hist[2]) / 24.0
+            x, pred_x0 = x_prev_from(e_prime, x, at, a_prev)
         hist = [e_t] + hist[:2]
     return x, pred_x0
 

@@ -32,6 +32,7 @@ from salun_torch.diffusion.sampling import (generalized_steps,
                                             ldm_uniform_timesteps, plms_steps)
 from salun_torch.diffusion.schedules import DiffusionSchedule
 from salun_torch.dist import context as dist_ctx
+from salun_torch.utils.metrics import span
 
 from .clip_text import CLIPTextConfig, CLIPTextModel, tokenize
 from .unet import SDUNet, SDUNetConfig
@@ -91,13 +92,15 @@ class SDModules:
     @torch.no_grad()
     def encode_text(self, input_ids) -> torch.Tensor:
         """Frozen CLIP context (ddpm.py get_learned_conditioning)."""
-        ids = torch.as_tensor(input_ids, device=self.device)
-        return self.clip(ids)
+        with span("clip.encode"):
+            ids = torch.as_tensor(input_ids, device=self.device)
+            return self.clip(ids)
 
     @torch.no_grad()
     def encode_image_moments(self, images):
         """[−1, 1] NCHW images → posterior (mean, logvar)."""
-        return self.vae.encode_moments(images)
+        with span("vae.encode"):
+            return self.vae.encode_moments(images)
 
     def latent_from_moments(self, moments, noise) -> torch.Tensor:
         """Scaled posterior draw ``(mean + exp(logvar/2)·noise)·0.18215``."""
@@ -115,7 +118,8 @@ class SDModules:
 
     @torch.no_grad()
     def decode_latent(self, z):
-        return self.vae.decode(z / self.scale_factor)
+        with span("vae.decode"):
+            return self.vae.decode(z / self.scale_factor)
 
     def apply_model(self, z_t, t, context):
         """eps prediction (DiffusionWrapper crossattn path, ddpm.py:1961)."""
@@ -193,49 +197,52 @@ class SDModules:
         if sampler not in ("ddim", "plms"):
             raise ValueError(f"unknown sampler {sampler!r}")
         n = len(prompts)
-        max_len = self.clip.cfg.max_length
-        z = (self.initial_latents(n, image_size, generator)
-             if initial_latents is None
-             else initial_latents.to(self.device, torch.float32))
-        ids_c = tokenize(prompts, max_len)
-        ids_u = tokenize(negative_prompts or [""] * n, max_len)
-        z, ids_c, ids_u = dist_ctx.constrain_batch((z, ids_c, ids_u))
-        ctx_c, ctx_u = self.encode_text(ids_c), self.encode_text(ids_u)
-        seq = ldm_uniform_timesteps(self.schedule.num_timesteps, steps)
-        if sampler == "ddim":
-            seq = seq[:-1]
-        final_ab = float(self.schedule.alphas_cumprod[0])
-        eps_fn = self.cfg_eps_fn(ctx_c, ctx_u, guidance)
-        with dist_ctx.sharded(n):
-            if sampler == "plms":
-                z, _ = plms_steps(eps_fn, z, seq, self.schedule,
-                                  final_alpha_bar=final_ab)
-            else:
-                z, _ = generalized_steps(eps_fn, z, seq, self.schedule,
-                                         eta=eta, generator=generator,
-                                         final_alpha_bar=final_ab)
-        if return_latents:
-            return dist_ctx.gather_rows(z, n)
-        img = self.decode_latent(z)
-        return dist_ctx.gather_rows(torch.clamp((img + 1.0) / 2.0, 0.0, 1.0),
-                                    n)
+        with span("sample", rows=n):
+            max_len = self.clip.cfg.max_length
+            z = (self.initial_latents(n, image_size, generator)
+                 if initial_latents is None
+                 else initial_latents.to(self.device, torch.float32))
+            ids_c = tokenize(prompts, max_len)
+            ids_u = tokenize(negative_prompts or [""] * n, max_len)
+            z, ids_c, ids_u = dist_ctx.constrain_batch((z, ids_c, ids_u))
+            ctx_c, ctx_u = self.encode_text(ids_c), self.encode_text(ids_u)
+            seq = ldm_uniform_timesteps(self.schedule.num_timesteps, steps)
+            if sampler == "ddim":
+                seq = seq[:-1]
+            final_ab = float(self.schedule.alphas_cumprod[0])
+            eps_fn = self.cfg_eps_fn(ctx_c, ctx_u, guidance)
+            with dist_ctx.sharded(n):
+                if sampler == "plms":
+                    z, _ = plms_steps(eps_fn, z, seq, self.schedule,
+                                      final_alpha_bar=final_ab)
+                else:
+                    z, _ = generalized_steps(eps_fn, z, seq, self.schedule,
+                                             eta=eta, generator=generator,
+                                             final_alpha_bar=final_ab)
+            if return_latents:
+                return dist_ctx.gather_rows(z, n)
+            img = self.decode_latent(z)
+            return dist_ctx.gather_rows(
+                torch.clamp((img + 1.0) / 2.0, 0.0, 1.0), n)
 
     def ddim_transition(self, eps_fn, z, t: int, t_next: int,
                         final_alpha_bar: float):
         """One deterministic DDIM step t → t_next (ᾱ at t_next = −1 is
         ``final_alpha_bar``)."""
-        n = z.shape[0]
-        sched = self.schedule
-        tt = torch.full((n,), t, dtype=torch.long, device=self.device)
-        at = sched.alpha_bar(tt).reshape(-1, 1, 1, 1)
-        if t_next < 0:
-            at_next = torch.full_like(at, final_alpha_bar)
-        else:
-            at_next = sched.alpha_bar(torch.full_like(tt, t_next)).reshape(
-                -1, 1, 1, 1)
-        et = eps_fn(z, tt.to(torch.float32))
-        x0_t = (z - et * torch.sqrt(1.0 - at)) / torch.sqrt(at)
-        return torch.sqrt(at_next) * x0_t + torch.sqrt(1.0 - at_next) * et
+        with span("sample.transition"):
+            n = z.shape[0]
+            sched = self.schedule
+            tt = torch.full((n,), t, dtype=torch.long, device=self.device)
+            at = sched.alpha_bar(tt).reshape(-1, 1, 1, 1)
+            if t_next < 0:
+                at_next = torch.full_like(at, final_alpha_bar)
+            else:
+                at_next = sched.alpha_bar(
+                    torch.full_like(tt, t_next)).reshape(-1, 1, 1, 1)
+            et = eps_fn(z, tt.to(torch.float32))
+            x0_t = (z - et * torch.sqrt(1.0 - at)) / torch.sqrt(at)
+            return (torch.sqrt(at_next) * x0_t
+                    + torch.sqrt(1.0 - at_next) * et)
 
     @torch.no_grad()
     def partial_sample_latent(self, ctx, *, t_target: int, steps: int,

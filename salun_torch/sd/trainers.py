@@ -53,6 +53,7 @@ from salun_torch.diffusion.sampling import _seq_pairs, ldm_uniform_timesteps
 from salun_torch.dist import context as dist_ctx
 from salun_torch.dist import fsdp
 from salun_torch.dist.topk import kth_largest, kth_largest_sharded
+from salun_torch.utils.metrics import span
 
 from .clip_text import tokenize
 from .ldm import SDModules
@@ -209,31 +210,34 @@ def sd_generate_mask(sd: SDModules, forget_images: torch.Tensor, prompts,
            for p in params]
     n = len(forget_images)
     for k, i in enumerate(range(0, n, batch_size)):
-        given = draws[k] if draws is not None else {}
-        imgs = forget_images[i:i + batch_size].to(device)
-        m = imgs.shape[0]
-        ids = (ids_c[i:i + m] if len(ids_c) == n else ids_c[:m], ids_u[:m])
-        imgs, given, (id_c, id_u) = dist_ctx.ingest((imgs, given, ids))
-        with dist_ctx.sharded(m):
-            z0 = sd.encode_image(imgs, given.get("posterior"), generator)
-            ctx_c, ctx_u = sd.encode_text(id_c), sd.encode_text(id_u)
-            b = z0.shape[0]
-            t = given.get("t")
-            t = sd.draw_t(b, generator) if t is None else t.to(device).long()
-            noise = given.get("noise")
-            noise = (dist_ctx.randn(z0.shape, generator=generator,
-                                    device=device)
-                     if noise is None else noise.to(device))
-        z_t = sd.q_sample(z0, t, noise)
-        e2 = sd.apply_model(torch.cat([z_t, z_t]), torch.cat([t, t]),
-                            torch.cat([ctx_c, ctx_u]))
-        eps = (1 + guidance) * e2[:b] - guidance * e2[b:]
-        loss = -(noise - eps).square().mean() * dist_ctx.share(m)
-        grads = torch.autograd.grad(loss, params)
-        if dist_ctx.skips(m):
-            continue  # a whole batch counts once, on rank 0
-        for a, g in zip(acc, grads):
-            a.add_(g.to(torch.float32))
+        with span("mask.grad"):
+            given = draws[k] if draws is not None else {}
+            imgs = forget_images[i:i + batch_size].to(device)
+            m = imgs.shape[0]
+            ids = (ids_c[i:i + m] if len(ids_c) == n else ids_c[:m],
+                   ids_u[:m])
+            imgs, given, (id_c, id_u) = dist_ctx.ingest((imgs, given, ids))
+            with dist_ctx.sharded(m):
+                z0 = sd.encode_image(imgs, given.get("posterior"), generator)
+                ctx_c, ctx_u = sd.encode_text(id_c), sd.encode_text(id_u)
+                b = z0.shape[0]
+                t = given.get("t")
+                t = (sd.draw_t(b, generator) if t is None
+                     else t.to(device).long())
+                noise = given.get("noise")
+                noise = (dist_ctx.randn(z0.shape, generator=generator,
+                                        device=device)
+                         if noise is None else noise.to(device))
+            z_t = sd.q_sample(z0, t, noise)
+            e2 = sd.apply_model(torch.cat([z_t, z_t]), torch.cat([t, t]),
+                                torch.cat([ctx_c, ctx_u]))
+            eps = (1 + guidance) * e2[:b] - guidance * e2[b:]
+            loss = -(noise - eps).square().mean() * dist_ctx.share(m)
+            grads = torch.autograd.grad(loss, params)
+            if dist_ctx.skips(m):
+                continue  # a whole batch counts once, on rank 0
+            for a, g in zip(acc, grads):
+                a.add_(g.to(torch.float32))
     dist_ctx.all_reduce_(acc)
     masks = generate_masks([a.abs_() for a in acc], thresholds)
     return {t: {name: m.to(torch.uint8) for name, m in zip(names, ms)}
@@ -373,17 +377,21 @@ def _make_step(loss_fn, optimizer: SDOptimizer):
     before the mask."""
     def step(batch, generator=None, draws=None):
         n = _batch_rows(batch)
-        optimizer.zero_grad()
-        batch, draws = dist_ctx.ingest((batch, draws))
-        with dist_ctx.sharded(n):
-            loss = loss_fn(batch, draws, generator) * dist_ctx.share(n)
-        sharded = dist_ctx.rows(n) is not None
-        optimizer.backward(loss, sharded)
-        loss = loss.detach()
-        if sharded:
-            (loss,) = dist_ctx.sum_scalars(loss)
-            loss = loss.to(torch.float32)
-        optimizer.step()
+        with span("step", rows=n):
+            with span("step.zero_grad"):
+                optimizer.zero_grad()
+            batch, draws = dist_ctx.ingest((batch, draws))
+            with span("step.forward"), dist_ctx.sharded(n):
+                loss = loss_fn(batch, draws, generator) * dist_ctx.share(n)
+            sharded = dist_ctx.rows(n) is not None
+            with span("step.backward"):
+                optimizer.backward(loss, sharded)
+                loss = loss.detach()
+                if sharded:
+                    (loss,) = dist_ctx.sum_scalars(loss)
+                    loss = loss.to(torch.float32)
+            with span("step.optimizer"):
+                optimizer.step()
         return loss
 
     return step

@@ -12,8 +12,7 @@
   jobs under their own ``CUDA_VISIBLE_DEVICES`` (the port's default; the
   JAX package's is ``TPU_VISIBLE_DEVICES``);
 - ``maybe_profile``: with ``SALUN_TRACE_DIR`` set, one Chrome trace file
-  in the directory holding the profiled ops; unset, nothing written;
-- ``step_timer``: one non-negative duration a step.
+  in the directory holding the profiled ops; unset, nothing written.
 """
 
 import json
@@ -27,7 +26,7 @@ from salun.utils.fanout import run_commands as jax_run_commands
 from salun.utils.meters import AverageMeter as JaxAverageMeter
 from salun.utils.metrics import MetricsWriter as JaxMetricsWriter
 from salun_torch.utils import (AverageMeter, MetricsWriter, maybe_profile,
-                               run_commands, step_timer)
+                               run_commands)
 
 LOGS = [(0, {"loss": 1.5, "acc": 10.0}), (1, {"loss": 1.0, "acc": 20.0}),
         (7, {"loss": torch.tensor(0.25), "acc": 33.5, "lr": 0.013})]
@@ -105,11 +104,3 @@ def test_maybe_profile_does_nothing_unasked(tmp_path, monkeypatch):
     with maybe_profile() as path:
         torch.ones(2).sum()
     assert path is None and os.listdir(tmp_path) == []
-
-
-def test_step_timer_appends_one_duration_a_step():
-    times = []
-    for _ in range(3):
-        with step_timer(times):
-            torch.ones(4).sum()
-    assert len(times) == 3 and all(t >= 0 for t in times)
